@@ -1,0 +1,219 @@
+// Windowed bilinear lookup over a materialized correlation pyramid, for Hopper
+// (sm_90a). Built by kernels/_build.py with plain nvcc; bound through ctypes
+// by kernels/corr_lookup.py. No PyTorch headers.
+//
+// Replaces two Pallas TPU kernels of raft_optical_flow_tpu/kernels/corr_lookup.py:
+//   raft_corr_lookup_level          <- _lookup_level_kernel   (K1, one level)
+//   raft_corr_lookup_coarse_fused   <- _coarse_fused_kernel   (K2, levels 1..L-1
+//                                      in one launch)
+//
+// What they compute: for each query q of batch b and level l, the (2r+1)^2
+// window of corr_l[b, q] (a contiguous [Hl, Wl] row) sampled bilinearly at
+// coords(q) / 2^l + (a - r, b - r), window channel k = a*(2r+1) + b; taps
+// outside [0, Wl-1] x [0, Hl-1] read 0. fp32 or bf16 volume, fp32 weights and
+// sums, one rounding to the fp32 or bf16 output.
+//
+// Design: on the TPU the lookup was two batched selector matmuls plus one-hot
+// placement matmuls, because Mosaic handles per-query addressing poorly. On
+// the card it is a gather: one thread per output value reads its four taps
+// from the query's row and writes one element, so consecutive threads write
+// consecutive outputs. The arithmetic is written without fused multiply-adds,
+// in the operation order of ops/corr.py::sample_corr_window, so the kernels
+// agree bit for bit with their plain PyTorch version.
+//
+// Bound on the card: bytes. Per query and level the kernel needs at most the
+// (K+1)^2 volume elements of its patch, the query's two coords, and writes K^2
+// outputs; a few flops per output are far below the compute rate. The taps of
+// one output are reloaded by its neighbours from L1/L2 rather than shared
+// through shared memory: this first version is simple and right; making it
+// fast is later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxLevels = 8;
+
+__device__ __forceinline__ float load_f(const float* p) { return *p; }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// Window value at (a, b) of one query's [H, W] row around (cx, cy).
+template <typename T>
+__device__ __forceinline__ float window_value(const T* __restrict__ row, int H,
+                                              int W, float cx, float cy, int a,
+                                              int b, int radius) {
+  const float px = __fadd_rn(cx, (float)(a - radius));
+  const float py = __fadd_rn(cy, (float)(b - radius));
+  const float x0 = floorf(px);
+  const float y0 = floorf(py);
+  const float wx = __fsub_rn(px, x0);
+  const float wy = __fsub_rn(py, y0);
+  // Clamp in float before the int cast: a cast of a far out-of-range float is
+  // undefined. [-2, W] keeps both x0 and x0 + 1 on their side of the bounds.
+  const int xi = (int)fminf(fmaxf(x0, -2.0f), (float)W);
+  const int yi = (int)fminf(fmaxf(y0, -2.0f), (float)H);
+  const bool x0in = xi >= 0 && xi <= W - 1;
+  const bool x1in = xi + 1 >= 0 && xi + 1 <= W - 1;
+  const bool y0in = yi >= 0 && yi <= H - 1;
+  const bool y1in = yi + 1 >= 0 && yi + 1 <= H - 1;
+  const T* r0 = row + (int64_t)yi * W + xi;
+  const T* r1 = r0 + W;
+  const float v00 = (x0in && y0in) ? load_f(r0) : 0.0f;
+  const float v01 = (x1in && y0in) ? load_f(r0 + 1) : 0.0f;
+  const float v10 = (x0in && y1in) ? load_f(r1) : 0.0f;
+  const float v11 = (x1in && y1in) ? load_f(r1 + 1) : 0.0f;
+  const float omx = __fsub_rn(1.0f, wx);
+  const float omy = __fsub_rn(1.0f, wy);
+  const float t00 = __fmul_rn(__fmul_rn(v00, omy), omx);
+  const float t01 = __fmul_rn(__fmul_rn(v01, omy), wx);
+  const float t10 = __fmul_rn(__fmul_rn(v10, wy), omx);
+  const float t11 = __fmul_rn(__fmul_rn(v11, wy), wx);
+  return __fadd_rn(__fadd_rn(__fadd_rn(t00, t01), t10), t11);
+}
+
+// K1: corr [BQ, H, W], coords [BQ, 2] level-scaled, out [BQ, K*K].
+template <typename TIn, typename TOut>
+__global__ void __launch_bounds__(kThreads)
+    lookup_level_kernel(const TIn* __restrict__ corr,
+                        const float* __restrict__ coords, TOut* __restrict__ out,
+                        int64_t bq_total, int H, int W, int radius) {
+  const int K = 2 * radius + 1;
+  const int KK = K * K;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= bq_total * KK) return;
+  const int64_t q = idx / KK;
+  const int k = (int)(idx - q * KK);
+  const int a = k / K;
+  const int b = k - a * K;
+  const TIn* row = corr + q * ((int64_t)H * W);
+  store_f(out + idx,
+          window_value(row, H, W, coords[2 * q], coords[2 * q + 1], a, b, radius));
+}
+
+struct CoarseLevels {
+  const void* corr[kMaxLevels];
+  int H[kMaxLevels];
+  int W[kMaxLevels];
+  float scale[kMaxLevels];  // 1 / 2^level, exact
+  int n;
+};
+
+// K2: levels [BQ, H_i, W_i], coords [BQ, 2] level-0, out [BQ, n*K*K].
+template <typename TIn, typename TOut>
+__global__ void __launch_bounds__(kThreads)
+    coarse_fused_kernel(CoarseLevels lv, const float* __restrict__ coords,
+                        TOut* __restrict__ out, int64_t bq_total, int radius) {
+  const int K = 2 * radius + 1;
+  const int KK = K * K;
+  const int per_q = lv.n * KK;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= bq_total * per_q) return;
+  const int64_t q = idx / per_q;
+  const int rem = (int)(idx - q * per_q);
+  const int li = rem / KK;
+  const int k = rem - li * KK;
+  const int H = lv.H[li];
+  const int W = lv.W[li];
+  float v = 0.0f;  // an empty level (floor-mode pooling) is all out of bounds
+  if (H > 0 && W > 0) {
+    const float s = lv.scale[li];
+    const TIn* row = static_cast<const TIn*>(lv.corr[li]) + q * ((int64_t)H * W);
+    const int a = k / K;
+    v = window_value(row, H, W, __fmul_rn(coords[2 * q], s),
+                     __fmul_rn(coords[2 * q + 1], s), a, k - a * K, radius);
+  }
+  store_f(out + idx, v);
+}
+
+bool grid_for(int64_t total, unsigned* blocks) {
+  const int64_t n = (total + kThreads - 1) / kThreads;
+  if (n > 0x7fffffff) return false;
+  *blocks = (unsigned)n;
+  return true;
+}
+
+template <typename TIn, typename TOut>
+void launch_level(const void* corr, const void* coords, void* out, int64_t bq,
+                  int H, int W, int radius, unsigned blocks, cudaStream_t s) {
+  lookup_level_kernel<TIn, TOut><<<blocks, kThreads, 0, s>>>(
+      static_cast<const TIn*>(corr), static_cast<const float*>(coords),
+      static_cast<TOut*>(out), bq, H, W, radius);
+}
+
+template <typename TIn, typename TOut>
+void launch_coarse(const CoarseLevels& lv, const void* coords, void* out,
+                   int64_t bq, int radius, unsigned blocks, cudaStream_t s) {
+  coarse_fused_kernel<TIn, TOut><<<blocks, kThreads, 0, s>>>(
+      lv, static_cast<const float*>(coords), static_cast<TOut*>(out), bq, radius);
+}
+
+}  // namespace
+
+// dtype codes: 0 = float32, 1 = bfloat16. Returns a cudaError_t as int.
+extern "C" int raft_corr_lookup_level(const void* corr, const void* coords,
+                                      void* out, int B, int Q, int H, int W,
+                                      int radius, int corr_dtype, int out_dtype,
+                                      void* stream) {
+  if (B < 0 || Q < 0 || H <= 0 || W <= 0 || radius < 0 || corr_dtype < 0 ||
+      corr_dtype > 1 || out_dtype < 0 || out_dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  const int K = 2 * radius + 1;
+  const int64_t bq = (int64_t)B * Q;
+  unsigned blocks;
+  if (bq == 0) return (int)cudaSuccess;
+  if (!grid_for(bq * K * K, &blocks)) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (corr_dtype * 2 + out_dtype) {
+    case 0: launch_level<float, float>(corr, coords, out, bq, H, W, radius, blocks, s); break;
+    case 1: launch_level<float, __nv_bfloat16>(corr, coords, out, bq, H, W, radius, blocks, s); break;
+    case 2: launch_level<__nv_bfloat16, float>(corr, coords, out, bq, H, W, radius, blocks, s); break;
+    default: launch_level<__nv_bfloat16, __nv_bfloat16>(corr, coords, out, bq, H, W, radius, blocks, s); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+// level_ptrs, level_h, level_w, level_index: host arrays of n_levels entries
+// (device pointer, Hl, Wl, pyramid level l). Empty levels (Hl or Wl = 0) are
+// written as zeros.
+extern "C" int raft_corr_lookup_coarse_fused(
+    const void* const* level_ptrs, const int* level_h, const int* level_w,
+    const int* level_index, int n_levels, const void* coords, void* out, int B,
+    int Q, int radius, int corr_dtype, int out_dtype, void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels || B < 0 || Q < 0 || radius < 0 ||
+      corr_dtype < 0 || corr_dtype > 1 || out_dtype < 0 || out_dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  CoarseLevels lv;
+  lv.n = n_levels;
+  for (int i = 0; i < kMaxLevels; ++i) {
+    const bool used = i < n_levels;
+    lv.corr[i] = used ? level_ptrs[i] : nullptr;
+    lv.H[i] = used ? level_h[i] : 0;
+    lv.W[i] = used ? level_w[i] : 0;
+    lv.scale[i] = used ? ldexpf(1.0f, -level_index[i]) : 0.0f;
+    if (used && (lv.H[i] < 0 || lv.W[i] < 0 || level_index[i] < 0))
+      return (int)cudaErrorInvalidValue;
+  }
+  const int K = 2 * radius + 1;
+  const int64_t bq = (int64_t)B * Q;
+  unsigned blocks;
+  if (bq == 0) return (int)cudaSuccess;
+  if (!grid_for(bq * n_levels * K * K, &blocks))
+    return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (corr_dtype * 2 + out_dtype) {
+    case 0: launch_coarse<float, float>(lv, coords, out, bq, radius, blocks, s); break;
+    case 1: launch_coarse<float, __nv_bfloat16>(lv, coords, out, bq, radius, blocks, s); break;
+    case 2: launch_coarse<__nv_bfloat16, float>(lv, coords, out, bq, radius, blocks, s); break;
+    default: launch_coarse<__nv_bfloat16, __nv_bfloat16>(lv, coords, out, bq, radius, blocks, s); break;
+  }
+  return (int)cudaGetLastError();
+}

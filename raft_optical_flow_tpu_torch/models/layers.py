@@ -1,0 +1,158 @@
+"""Shared building blocks with the JAX package's semantics.
+
+Counterpart of `raft_optical_flow_tpu/models/layers.py`. Modules run NCHW
+inside; the model's public tensors stay NHWC.
+
+Compute-dtype policy: parameters stay fp32 and every conv and norm runs in the
+dtype of its input. The model casts its inputs to the compute dtype once
+(fp32, or bf16 under the mixed-precision policy), which plays the part of the
+JAX package's `compute_dtype_scope`.
+
+fp32 parity: the JAX fp32 path runs every contraction at HIGHEST precision,
+so the fp32 policy needs TF32 off for both cuBLAS matmuls and cuDNN convs
+(`fp32_policy`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+IntPair = Union[int, Sequence[int]]
+
+
+def fp32_policy() -> None:
+    """Turn TF32 off for matmuls and convs: the fp32 policy is full fp32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+class Conv2d(nn.Conv2d):
+    """Conv2d with torch-style symmetric padding that runs in its input's dtype
+    (fp32 parameters are cast to the activation dtype, bias included)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(
+            x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+            self.dilation, self.groups,
+        )
+
+
+def conv(cin: int, cout: int, kernel_size: IntPair = 3, stride: IntPair = 1,
+         padding: IntPair = 1) -> Conv2d:
+    return Conv2d(cin, cout, kernel_size, stride, padding)
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Per-sample, per-channel spatial normalization of NCHW x; no affine.
+
+    One-pass fp32 stats, E[x^2] - E[x]^2, clamped at 0; the normalize pass runs
+    in the input dtype (`layers.py::instance_norm` of the JAX package).
+    """
+    x32 = x.float()
+    mean = x32.mean(dim=(2, 3), keepdim=True)
+    mean_sq = (x32 * x32).mean(dim=(2, 3), keepdim=True)
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
+    inv = torch.rsqrt(var + eps)
+    return (x - mean.to(x.dtype)) * inv.to(x.dtype)
+
+
+def apply_norm(
+    x: torch.Tensor,
+    norm_fn: str,
+    weight: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    running_mean: Optional[torch.Tensor] = None,
+    running_var: Optional[torch.Tensor] = None,
+    num_groups: Optional[int] = None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Norm of NCHW x for norm_fn in {'group', 'batch', 'instance', 'none'}.
+
+    BatchNorm is frozen: it always uses the running statistics. Group and batch
+    norms compute in fp32 and round once to the input dtype, as flax does.
+    """
+    if norm_fn == "group":
+        y = F.group_norm(x.float(), num_groups, weight, bias, eps)
+        return y.to(x.dtype)
+    if norm_fn == "batch":
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(running_var + eps) * weight
+        y = (x.float() - running_mean.view(shape)) * mul.view(shape) + bias.view(shape)
+        return y.to(x.dtype)
+    if norm_fn == "instance":
+        return instance_norm(x, eps)
+    if norm_fn == "none":
+        return x
+    raise ValueError(f"unknown norm_fn {norm_fn!r}")
+
+
+class Norm(nn.Module):
+    """Holds the parameters `apply_norm` needs for one norm_fn.
+
+    batch: `weight`, `bias` and the `running_mean`/`running_var` buffers (no
+    `num_batches_tracked`: BN is frozen); group: `weight`, `bias`;
+    instance, none: nothing.
+    """
+
+    def __init__(self, norm_fn: str, features: int, num_groups: Optional[int] = None):
+        super().__init__()
+        if norm_fn not in ("group", "batch", "instance", "none"):
+            raise ValueError(f"unknown norm_fn {norm_fn!r}")
+        self.norm_fn = norm_fn
+        self.num_groups = num_groups if num_groups is not None else features // 8
+        if norm_fn in ("group", "batch"):
+            self.weight = nn.Parameter(torch.ones(features))
+            self.bias = nn.Parameter(torch.zeros(features))
+        if norm_fn == "batch":
+            self.register_buffer("running_mean", torch.zeros(features))
+            self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_norm(
+            x, self.norm_fn,
+            getattr(self, "weight", None), getattr(self, "bias", None),
+            getattr(self, "running_mean", None), getattr(self, "running_var", None),
+            self.num_groups,
+        )
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init matching the JAX package's initializers in scale.
+
+    Conv kernels: U(+-1/sqrt(fan_in)) (torch's Conv2d default, the JAX
+    package's TORCH_DEFAULT_INIT); conv biases zero; norms identity. Modules
+    with `kaiming_out = True` (the RAFT encoders) draw their conv kernels from
+    N(0, 2/fan_out) instead, truncated at two standard deviations
+    (`KAIMING_OUT_INIT`). The numbers differ from the JAX package's at the same
+    seed: tests that compare the two carry weights across instead.
+    """
+    kaiming = {
+        id(m)
+        for p in module.modules() if getattr(p, "kaiming_out", False)
+        for m in p.modules()
+    }
+    for m in module.modules():
+        if not isinstance(m, nn.Conv2d):
+            continue
+        w = m.weight
+        cout, cin_g, kh, kw = w.shape
+        with torch.no_grad():
+            if id(m) in kaiming:
+                # flax's truncated normal keeps unit variance after truncation
+                std = (2.0 / (cout * kh * kw)) ** 0.5 / 0.87962566103423978
+                t = torch.randn(w.shape, generator=generator)
+                bad = t.abs() > 2.0
+                while bad.any():
+                    t[bad] = torch.randn(int(bad.sum()), generator=generator)
+                    bad = t.abs() > 2.0
+                w.copy_(t * std)
+            else:
+                bound = (cin_g * kh * kw) ** -0.5
+                w.copy_((2.0 * torch.rand(w.shape, generator=generator) - 1.0) * bound)
+            if m.bias is not None:
+                m.bias.zero_()

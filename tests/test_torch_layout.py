@@ -1,0 +1,78 @@
+"""Package rules of the PyTorch port, read from the sources with `ast`.
+
+`raft_optical_flow_tpu_torch`, `chip_smoke.py` and
+`tools/profile_port_raft.py` import neither JAX, flax,
+optax, PIL nor the JAX package (the card's machine has no JAX); the kernels
+are built by nvcc and bound through ctypes, never through
+`torch.utils.cpp_extension` or `torch.compile`; entry points default to the
+card.
+"""
+
+import ast
+import inspect
+import os
+
+import pytest
+
+from raft_optical_flow_tpu_torch.models import RAFT
+from raft_optical_flow_tpu_torch.ops.grid import coords_grid
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "raft_optical_flow_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "PIL", "raft_optical_flow_tpu")
+
+
+def _sources():
+    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tools", "profile_port_raft.py")]
+    for root, dirs, files in os.walk(PORT):
+        dirs[:] = [d for d in dirs if d not in ("_build", "__pycache__")]  # build outputs
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names.append(node.module)
+    return tree, names
+
+
+def test_sources_found():
+    srcs = _sources()
+    assert len(srcs) >= 15
+    assert os.path.join(PORT, "kernels", "corr_lookup.py") in srcs
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_pil_or_jax_package_import(path):
+    _, names = _imports(path)
+    for name in names:
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {name}"
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_cpp_extension_or_torch_compile(path):
+    tree, names = _imports(path)
+    assert not any("cpp_extension" in n for n in names), path
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute):
+            assert node.attr not in ("compile", "cpp_extension") or not (
+                isinstance(node.value, ast.Name) and node.value.id == "torch"
+            ), f"{path} uses torch.{node.attr}"
+
+
+def test_kernel_source_is_cuda_for_sm90a():
+    src = open(os.path.join(PORT, "kernels", "csrc", "corr_lookup.cu")).read()
+    assert "torch/extension.h" not in src and "pybind11" not in src
+    build = open(os.path.join(PORT, "kernels", "_build.py")).read()
+    assert "arch=compute_90a,code=sm_90a" in build
+
+
+def test_entry_points_default_to_cuda():
+    assert inspect.signature(RAFT.__init__).parameters["device"].default == "cuda"
+    assert inspect.signature(coords_grid).parameters["device"].default == "cuda"

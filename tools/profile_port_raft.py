@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""Profile one RAFT-standard forward of the PyTorch port on the GPU.
+
+    python3 tools/profile_port_raft.py [--batch 16] [--iters 32] [--dtype bf16]
+
+The serving workload of `bench.py::main` (1024x436 frames padded to 1024x440,
+test mode, seeded random weights and frames) runs once to warm up, then once
+under `torch.profiler`. Prints the device time by kernel (the 20 largest), the
+time per group (the port's CUDA lookup kernels, convolutions, matmuls, the
+rest), and the device busy share: summed kernel time over the host-clock wall
+time of the profiled call (the profiler's own host overhead is inside that
+wall time, so the share is a lower bound). `--trace PATH` also writes the
+Chrome trace. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GROUPS = (
+    ("lookup kernels (port)", re.compile(r"lookup_level_kernel|coarse_fused_kernel")),
+    ("convolution", re.compile(r"conv|fprop|implicit|dgrad|cudnn|xmma", re.I)),
+    ("matmul", re.compile(r"gemm|cutlass|cublas", re.I)),
+)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--iters", type=int, default=32)
+    ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
+    ap.add_argument("--trace", metavar="PATH", help="write the Chrome trace to PATH")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_port_raft: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from raft_optical_flow_tpu_torch.models import RAFT, RAFTConfig
+    from raft_optical_flow_tpu_torch.ops.padding import InputPadder
+
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    model = RAFT(RAFTConfig(compute_dtype=dtype), device="cuda",
+                 generator=torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(args.batch)
+    frames = [torch.from_numpy(rng.uniform(0, 255, (args.batch, 436, 1024, 3))
+                               .astype(np.float32)).cuda() for _ in range(2)]
+    img1, img2 = InputPadder(frames[0].shape, mode="sintel").pad(*frames)
+    model(img1, img2, iters=args.iters)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model(img1, img2, iters=args.iters)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    kernels = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(e.device_type):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            kernels.append((us / 1e3, e.count, e.key))
+    kernels.sort(reverse=True)
+    device_ms = sum(k[0] for k in kernels)
+    if device_ms == 0:
+        raise RuntimeError("the profiler recorded no device time")
+    print(f"{torch.cuda.get_device_name(0)} batch={args.batch} iters={args.iters} "
+          f"dtype={args.dtype}: wall {wall_ms:.3f} ms (profiled), device {device_ms:.3f} ms, "
+          f"busy share {device_ms / wall_ms:.4f}")
+    totals = {name: 0.0 for name, _ in GROUPS}
+    totals["other (elementwise, norms, copies)"] = 0.0
+    for ms, _, key in kernels:
+        group = next((name for name, pat in GROUPS if pat.search(key)), None)
+        totals[group or "other (elementwise, norms, copies)"] += ms
+    for name, ms in totals.items():
+        print(f"  group {name}: {ms:.3f} ms ({ms / device_ms:.4f})")
+    for ms, count, key in kernels[:20]:
+        print(f"  {ms:9.3f} ms {count:6d}x  {key[:110]}")
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+        print(f"trace: {args.trace}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
