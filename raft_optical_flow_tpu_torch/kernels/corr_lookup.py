@@ -1,18 +1,20 @@
 """Windowed bilinear lookup over a materialized correlation pyramid.
 
-Counterpart of `raft_optical_flow_tpu/kernels/corr_lookup.py`. Two CUDA
+Counterpart of `raft_optical_flow_tpu/kernels/corr_lookup.py`. Three CUDA
 kernels (`csrc/corr_lookup.cu`, built by `_build.py`, bound through ctypes):
 
   - K1 `corr_lookup_level`: one pyramid level (replaces `_lookup_level_kernel`);
   - K2 `corr_lookup_coarse_fused`: levels 1..L-1 in one launch (replaces
-    `_coarse_fused_kernel`); empty levels come out as zeros.
+    `_coarse_fused_kernel`); empty levels come out as zeros; forward only;
+  - K3 `corr_lookup_level_bwd`: K1's gradient wrt the volume (replaces
+    `_lookup_level_bwd_kernel`), the backward of the autograd Function
+    `LookupLevel`, whose forward is K1.
 
 `corr_pyramid_lookup_cuda` has the signature of the JAX package's
 `corr_pyramid_lookup_pallas`. For a CUDA tensor each wrapper launches its
-kernel or raises; for a CPU tensor it runs the plain version
-(`ops/corr.py::sample_corr_window`), which is also the kernels' oracle. Each
-wrapper counts its launches in `LAUNCHES`. Forward only: the volume gradient
-(K3) comes with training.
+kernel or raises; for a CPU tensor it runs the plain version (K1, K2:
+`ops/corr.py::sample_corr_window`; K3: `corr_lookup_level_bwd_plain`), which
+is also the kernel's oracle. Each wrapper counts its launches in `LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ from raft_optical_flow_tpu_torch.kernels import _build
 from raft_optical_flow_tpu_torch.ops.corr import sample_corr_window
 
 # launches of each kernel since the last reset_launches(); plain runs do not count
-LAUNCHES: Dict[str, int] = {"corr_lookup_level": 0, "corr_lookup_coarse_fused": 0}
+LAUNCHES: Dict[str, int] = {
+    "corr_lookup_level": 0, "corr_lookup_coarse_fused": 0, "corr_lookup_level_bwd": 0,
+}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_COARSE_LEVELS = 8
@@ -47,6 +51,8 @@ def _kernels() -> ctypes.CDLL:
         lib.raft_corr_lookup_level.restype = I
         lib.raft_corr_lookup_coarse_fused.argtypes = [P, P, P, P, I, P, P, I, I, I, I, I, P]
         lib.raft_corr_lookup_coarse_fused.restype = I
+        lib.raft_corr_lookup_level_bwd.argtypes = [P, P, P, I, I, I, I, I, I, I, P]
+        lib.raft_corr_lookup_level_bwd.restype = I
         _lib = lib
     return _lib
 
@@ -164,6 +170,96 @@ def corr_lookup_coarse_fused(levels: Sequence[torch.Tensor], coords: torch.Tenso
     return out
 
 
+def _tap_weights(c: torch.Tensor, radius: int, n: int) -> torch.Tensor:
+    """[B, Q, K, n]: the weight K1 gives pixel p of an n-pixel axis in window
+    column a, for level-scaled centres c [B, Q]. K1's arithmetic: pa = c + a - r,
+    p0 = floor(pa), weight 1 - (pa - p0) at p0 and pa - p0 at p0 + 1 (the tri
+    selector tri(p - pa), rounded as K1 rounds it)."""
+    d = torch.arange(-radius, radius + 1, dtype=torch.float32, device=c.device)
+    pa = c[..., None] + d
+    p0 = torch.floor(pa)
+    wa = (pa - p0)[..., None]
+    pi = p0.clamp(-2, n).long()[..., None]  # clamp in float before the int cast
+    p = torch.arange(n, device=c.device)
+    zero = torch.zeros((), device=c.device)
+    return torch.where(pi == p, 1 - wa, zero) + torch.where(pi + 1 == p, wa, zero)
+
+
+def corr_lookup_level_bwd_plain(coords_l, g, Hl, Wl, radius, out_dtype=torch.float32):
+    """Plain version of K3: level-scaled coords [B, Q, 2], g [B, Q, K^2] ->
+    dcorr [B, Q, Hl, Wl] out_dtype. The separable form: selectors X [B, Q, K, Wl]
+    and Y [B, Q, K, Hl], two fp32 einsums, one cast."""
+    B, Q, _ = coords_l.shape
+    K = 2 * radius + 1
+    X = _tap_weights(coords_l[..., 0], radius, Wl)
+    Y = _tap_weights(coords_l[..., 1], radius, Hl)
+    g3 = g.float().reshape(B, Q, K, K)  # [.., a, b]: channel k = a*K + b
+    t = torch.einsum("nqab,nqbh->nqah", g3, Y)
+    return torch.einsum("nqah,nqaw->nqhw", t, X).to(out_dtype)
+
+
+def corr_lookup_level_bwd(coords_l: torch.Tensor, g: torch.Tensor, Hl: int, Wl: int,
+                          radius: int, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K3: K1's gradient wrt the volume at one level.
+
+    coords_l: [B, Q, 2] fp32 level-scaled (x, y), contiguous; g: [B, Q, (2r+1)^2]
+    fp32 or bf16, contiguous (K1's output cotangent); out_dtype: the volume's
+    dtype. Returns dense dcorr [B, Q, Hl, Wl] out_dtype (fp32 sums, one
+    rounding). An empty level returns an empty tensor without a launch.
+    """
+    _check_coords(coords_l, out_dtype, radius)
+    B, Q, _ = coords_l.shape
+    K = 2 * radius + 1
+    if tuple(g.shape) != (B, Q, K * K) or g.dtype not in _DTYPE_CODE:
+        raise ValueError(f"g must be float32/bfloat16 [{B}, {Q}, {K * K}], "
+                         f"got {g.dtype} {tuple(g.shape)}")
+    if g.device != coords_l.device or not g.is_contiguous():
+        raise ValueError("g must be contiguous and on the coords' device")
+    if Hl < 0 or Wl < 0:
+        raise ValueError(f"level shape must be >= 0, got {Hl}x{Wl}")
+    if not coords_l.is_cuda:
+        return corr_lookup_level_bwd_plain(coords_l, g, Hl, Wl, radius, out_dtype)
+    out = torch.empty(B, Q, Hl, Wl, dtype=out_dtype, device=coords_l.device)
+    if out.numel() == 0:
+        return out
+    lib = _kernels()
+    with torch.cuda.device(coords_l.device):
+        err = lib.raft_corr_lookup_level_bwd(
+            coords_l.data_ptr(), g.data_ptr(), out.data_ptr(), B, Q, Hl, Wl, radius,
+            _DTYPE_CODE[g.dtype], _DTYPE_CODE[out_dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _check(err, "corr_lookup_level_bwd")
+    LAUNCHES["corr_lookup_level_bwd"] += 1
+    return out
+
+
+class LookupLevel(torch.autograd.Function):
+    """K1 with K3 as its backward: differentiable wrt the volume only.
+
+    apply(corr_l, coords_l, radius, out_dtype) -> [B, Q, (2r+1)^2]. The coords
+    gradient is None, as the JAX package's `_lookup_level_bwd` returns zeros:
+    RAFT detaches coords before every lookup.
+    """
+
+    @staticmethod
+    def forward(ctx, corr_l, coords_l, radius, out_dtype):
+        ctx.save_for_backward(coords_l)
+        ctx.radius = radius
+        ctx.level_shape = tuple(corr_l.shape[2:])
+        ctx.volume_dtype = corr_l.dtype
+        return corr_lookup_level(corr_l, coords_l, radius, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        (coords_l,) = ctx.saved_tensors
+        dcorr = corr_lookup_level_bwd(coords_l, g.contiguous(), *ctx.level_shape,
+                                      ctx.radius, ctx.volume_dtype)
+        return dcorr, None, None, None
+
+
 def corr_pyramid_lookup_cuda(
     pyramid: Sequence[torch.Tensor],
     coords: torch.Tensor,
@@ -174,16 +270,21 @@ def corr_pyramid_lookup_cuda(
     """Multi-level lookup through K1 (and K2 when `fuse_coarse`).
 
     pyramid: [B, Q, Hl, Wl] per level, level 0 first; coords: [B, h, w, 2]
-    level-0 (x, y), Q = h*w. fuse_coarse (the serving path) runs levels
-    1..L-1 through one K2 launch when there are more than two levels.
+    level-0 (x, y), Q = h*w. fuse_coarse (the serving path, forward only) runs
+    levels 1..L-1 through one K2 launch when there are more than two levels.
+    Every per-level lookup goes through `LookupLevel`, so under autograd the
+    volume gradient of each level is one K3 launch (training).
     Returns [B, h, w, L*(2r+1)^2] out_dtype, levels concatenated coarse-last.
     """
     B, h, w, _ = coords.shape
+    if fuse_coarse and torch.is_grad_enabled() and any(c.requires_grad for c in pyramid):
+        raise ValueError("fuse_coarse is forward only (K2 has no backward); "
+                         "run the lookup per level to differentiate it")
     flat = coords.reshape(B, h * w, 2).float().contiguous()
-    outs = [corr_lookup_level(pyramid[0], flat, radius, out_dtype)]
+    outs = [LookupLevel.apply(pyramid[0], flat, radius, out_dtype)]
     if fuse_coarse and len(pyramid) > 2:
         outs.append(corr_lookup_coarse_fused(pyramid[1:], flat, radius, out_dtype))
     else:
         for lvl, c in enumerate(pyramid[1:], start=1):
-            outs.append(corr_lookup_level(c, flat * (1.0 / 2**lvl), radius, out_dtype))
+            outs.append(LookupLevel.apply(c, flat * (1.0 / 2**lvl), radius, out_dtype))
     return torch.cat(outs, dim=-1).reshape(B, h, w, -1)

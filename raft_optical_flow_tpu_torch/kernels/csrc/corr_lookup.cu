@@ -2,10 +2,12 @@
 // (sm_90a). Built by kernels/_build.py with plain nvcc; bound through ctypes
 // by kernels/corr_lookup.py. No PyTorch headers.
 //
-// Replaces two Pallas TPU kernels of raft_optical_flow_tpu/kernels/corr_lookup.py:
+// Replaces three Pallas TPU kernels of raft_optical_flow_tpu/kernels/corr_lookup.py:
 //   raft_corr_lookup_level          <- _lookup_level_kernel   (K1, one level)
 //   raft_corr_lookup_coarse_fused   <- _coarse_fused_kernel   (K2, levels 1..L-1
 //                                      in one launch)
+//   raft_corr_lookup_level_bwd      <- _lookup_level_bwd_kernel (K3, K1's
+//                                      gradient wrt the volume; see below)
 //
 // What they compute: for each query q of batch b and level l, the (2r+1)^2
 // window of corr_l[b, q] (a contiguous [Hl, Wl] row) sampled bilinearly at
@@ -134,6 +136,91 @@ __global__ void __launch_bounds__(kThreads)
   store_f(out + idx, v);
 }
 
+// K3, the volume gradient of K1:
+//   dcorr[q, h, w] = sum_{a, b} X_a(w) * Y_b(h) * g[q, a*K + b]
+// where X_a(w) is the weight K1 gave column w in window column a: with
+// px = cx + (a - r), x0 = floor(px), wx = px - x0 (K1's arithmetic), it is
+// 1 - wx at w = x0, wx at w = x0 + 1, and 0 elsewhere; Y_b(h) likewise in y.
+// The coords gradient is zero (RAFT detaches coords before every lookup).
+//
+// Design: on the TPU the gradient was two selector matmuls per query tile
+// (one-hot placement matmuls unflattened the cotangent, and the query tile
+// was halved to fit VMEM). On the card it is one thread per element of the
+// dense [Hl, Wl] row of each query: every element is written exactly once (no
+// atomics, no memset), consecutive threads write consecutive w. An element
+// outside the query's (2r+2)^2 patch gets 0 after one test; one inside it
+// sums the at most 2 x 2 window taps whose weight reaches (h, w), fp32
+// weights and sums, one rounding to the volume dtype. Deterministic. A
+// thread keeps one (h, w) and walks the queries, so its index math is one
+// 32-bit division, not a 64-bit one per element.
+//
+// Bound on the card: bytes. The dense dcorr write (B*Q*Hl*Wl elements)
+// dwarfs the g read (B*Q*K^2) and the coords; a patch element takes about 16
+// multiply-adds. Making it fast (wider stores, one buffer for all iterations'
+// gradients) is later work.
+
+// Weight that window column a (centre c, level-scaled) gives pixel p of a row
+// of n pixels: K1's bilinear weight, 0 where column a does not reach p.
+__device__ __forceinline__ float tap_weight(float c, int a, int radius, int p, int n) {
+  const float pa = __fadd_rn(c, (float)(a - radius));
+  const float p0 = floorf(pa);
+  const float wa = __fsub_rn(pa, p0);
+  const int pi = (int)fminf(fmaxf(p0, -2.0f), (float)n);  // K1's clamp
+  if (pi == p) return __fsub_rn(1.0f, wa);
+  if (pi + 1 == p) return wa;
+  return 0.0f;
+}
+
+// g: [BQ, K*K]; coords: [BQ, 2] level-scaled; dcorr: [BQ, H, W].
+// Grid: x covers one query's H*W row (32-bit index math, one division per
+// thread), y walks the queries with a stride of gridDim.y.
+template <typename TG, typename TOut>
+__global__ void __launch_bounds__(kThreads)
+    lookup_level_bwd_kernel(const float* __restrict__ coords,
+                            const TG* __restrict__ g, TOut* __restrict__ dcorr,
+                            int64_t bq_total, int H, int W, int radius) {
+  const int hw = H * W;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= hw) return;
+  const int h = e / W;
+  const int w = e - h * W;
+  const int K = 2 * radius + 1;
+  const float lim = (float)radius + 2.0f;
+  for (int64_t q = blockIdx.y; q < bq_total; q += gridDim.y) {
+    const float cx = coords[2 * q];
+    const float cy = coords[2 * q + 1];
+    // Window column a sits at floor(cx) + a - r, give or take one for the
+    // rounding of cx + (a - r), and reaches its tap and the next: so only
+    // a in [w - floor(cx) + r - 2, w - floor(cx) + r + 1] can reach w, and
+    // none can once w is more than r + 2 from floor(cx). Same in y. Far
+    // out-of-bounds coords fail this test in float, before any int cast.
+    const float dx = (float)w - floorf(cx);
+    const float dy = (float)h - floorf(cy);
+    float acc = 0.0f;
+    if (dx >= -lim && dx <= lim && dy >= -lim && dy <= lim) {
+      const TG* gq = g + q * (int64_t)(K * K);
+      const int a_lo = (int)dx + radius - 2;
+      const int b_lo = (int)dy + radius - 2;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int a = a_lo + i;
+        if (a < 0 || a >= K) continue;
+        const float xw = tap_weight(cx, a, radius, w, W);
+        if (xw == 0.0f) continue;
+        float t = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int b = b_lo + j;
+          if (b < 0 || b >= K) continue;
+          t += tap_weight(cy, b, radius, h, H) * load_f(gq + a * K + b);
+        }
+        acc += xw * t;
+      }
+    }
+    store_f(dcorr + q * (int64_t)hw + e, acc);
+  }
+}
+
 bool grid_for(int64_t total, unsigned* blocks) {
   const int64_t n = (total + kThreads - 1) / kThreads;
   if (n > 0x7fffffff) return false;
@@ -147,6 +234,14 @@ void launch_level(const void* corr, const void* coords, void* out, int64_t bq,
   lookup_level_kernel<TIn, TOut><<<blocks, kThreads, 0, s>>>(
       static_cast<const TIn*>(corr), static_cast<const float*>(coords),
       static_cast<TOut*>(out), bq, H, W, radius);
+}
+
+template <typename TG, typename TOut>
+void launch_level_bwd(const void* coords, const void* g, void* dcorr, int64_t bq,
+                      int H, int W, int radius, dim3 blocks, cudaStream_t s) {
+  lookup_level_bwd_kernel<TG, TOut><<<blocks, kThreads, 0, s>>>(
+      static_cast<const float*>(coords), static_cast<const TG*>(g),
+      static_cast<TOut*>(dcorr), bq, H, W, radius);
 }
 
 template <typename TIn, typename TOut>
@@ -214,6 +309,32 @@ extern "C" int raft_corr_lookup_coarse_fused(
     case 1: launch_coarse<float, __nv_bfloat16>(lv, coords, out, bq, radius, blocks, s); break;
     case 2: launch_coarse<__nv_bfloat16, float>(lv, coords, out, bq, radius, blocks, s); break;
     default: launch_coarse<__nv_bfloat16, __nv_bfloat16>(lv, coords, out, bq, radius, blocks, s); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+// coords [B*Q, 2] fp32 level-scaled, g [B*Q, K*K] (g_dtype), dcorr [B*Q, H, W]
+// (dcorr_dtype, the volume's). dtype codes as above. Every element of dcorr is
+// written. Returns a cudaError_t as int.
+extern "C" int raft_corr_lookup_level_bwd(const void* coords, const void* g,
+                                          void* dcorr, int B, int Q, int H, int W,
+                                          int radius, int g_dtype, int dcorr_dtype,
+                                          void* stream) {
+  if (B < 0 || Q < 0 || H <= 0 || W <= 0 || radius < 0 || g_dtype < 0 ||
+      g_dtype > 1 || dcorr_dtype < 0 || dcorr_dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  const int64_t bq = (int64_t)B * Q;
+  if (bq == 0) return (int)cudaSuccess;
+  if ((int64_t)H * W > 0x7fffffff - kThreads) return (int)cudaErrorInvalidConfiguration;
+  const int hw = H * W;
+  const dim3 blocks((unsigned)((hw + kThreads - 1) / kThreads),
+                    (unsigned)(bq < 65535 ? bq : 65535));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (g_dtype * 2 + dcorr_dtype) {
+    case 0: launch_level_bwd<float, float>(coords, g, dcorr, bq, H, W, radius, blocks, s); break;
+    case 1: launch_level_bwd<float, __nv_bfloat16>(coords, g, dcorr, bq, H, W, radius, blocks, s); break;
+    case 2: launch_level_bwd<__nv_bfloat16, float>(coords, g, dcorr, bq, H, W, radius, blocks, s); break;
+    default: launch_level_bwd<__nv_bfloat16, __nv_bfloat16>(coords, g, dcorr, bq, H, W, radius, blocks, s); break;
   }
   return (int)cudaGetLastError();
 }

@@ -61,6 +61,36 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x - mean.to(x.dtype)) * inv.to(x.dtype)
 
 
+def batch_norm_train(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    running_mean: torch.Tensor,
+    running_var: torch.Tensor,
+    momentum: float = 0.9,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """BatchNorm of NCHW x in training mode, as flax's `nn.BatchNorm(momentum=0.9)`.
+
+    Normalizes with the batch's one-pass fp32 statistics (E[x^2] - E[x]^2,
+    biased, clamped at 0; gradients flow through them) and rounds once to the
+    input dtype. Updates the running statistics in place with
+    `ra = momentum * ra + (1 - momentum) * stat`, the variance BIASED as flax
+    keeps it: `F.batch_norm(training=True)` would store the unbiased one.
+    """
+    x32 = x.float()
+    mean = x32.mean(dim=(0, 2, 3))
+    mean_sq = (x32 * x32).mean(dim=(0, 2, 3))
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
+    with torch.no_grad():
+        running_mean.copy_(momentum * running_mean + (1 - momentum) * mean)
+        running_var.copy_(momentum * running_var + (1 - momentum) * var)
+    shape = (1, -1, 1, 1)
+    mul = torch.rsqrt(var + eps) * weight
+    y = (x32 - mean.view(shape)) * mul.view(shape) + bias.view(shape)
+    return y.to(x.dtype)
+
+
 def apply_norm(
     x: torch.Tensor,
     norm_fn: str,
@@ -70,16 +100,21 @@ def apply_norm(
     running_var: Optional[torch.Tensor] = None,
     num_groups: Optional[int] = None,
     eps: float = 1e-5,
+    bn_train: bool = False,
 ) -> torch.Tensor:
     """Norm of NCHW x for norm_fn in {'group', 'batch', 'instance', 'none'}.
 
-    BatchNorm is frozen: it always uses the running statistics. Group and batch
-    norms compute in fp32 and round once to the input dtype, as flax does.
+    BatchNorm uses the running statistics unless `bn_train`, which normalizes
+    with batch statistics and updates the running ones (`batch_norm_train`).
+    Group and batch norms compute in fp32 and round once to the input dtype,
+    as flax does.
     """
     if norm_fn == "group":
         y = F.group_norm(x.float(), num_groups, weight, bias, eps)
         return y.to(x.dtype)
     if norm_fn == "batch":
+        if bn_train:
+            return batch_norm_train(x, weight, bias, running_mean, running_var, eps=eps)
         shape = (1, -1, 1, 1)
         mul = torch.rsqrt(running_var + eps) * weight
         y = (x.float() - running_mean.view(shape)) * mul.view(shape) + bias.view(shape)
@@ -91,12 +126,24 @@ def apply_norm(
     raise ValueError(f"unknown norm_fn {norm_fn!r}")
 
 
+def channel_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Dropout of whole channels of NCHW x: one keep-mask per sample and channel,
+    kept values scaled by 1/(1-rate) (flax `nn.Dropout(broadcast_dims=(1, 2))`
+    on NHWC). The mask is drawn on the generator's device from `generator`."""
+    if rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(x.shape[0], x.shape[1], 1, 1, generator=generator, device=generator.device)
+    mask = (u < keep).to(x.device)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Norm(nn.Module):
     """Holds the parameters `apply_norm` needs for one norm_fn.
 
     batch: `weight`, `bias` and the `running_mean`/`running_var` buffers (no
-    `num_batches_tracked`: BN is frozen); group: `weight`, `bias`;
-    instance, none: nothing.
+    `num_batches_tracked`: flax keeps none); group: `weight`, `bias`;
+    instance, none: nothing. `forward(x, bn_train)`: see `apply_norm`.
     """
 
     def __init__(self, norm_fn: str, features: int, num_groups: Optional[int] = None):
@@ -112,12 +159,12 @@ class Norm(nn.Module):
             self.register_buffer("running_mean", torch.zeros(features))
             self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_train: bool = False) -> torch.Tensor:
         return apply_norm(
             x, self.norm_fn,
             getattr(self, "weight", None), getattr(self, "bias", None),
             getattr(self, "running_mean", None), getattr(self, "running_var", None),
-            self.num_groups,
+            self.num_groups, bn_train=bn_train,
         )
 
 

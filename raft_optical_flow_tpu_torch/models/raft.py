@@ -1,4 +1,4 @@
-"""RAFT inference (test mode) over the materialized correlation pyramid.
+"""RAFT over the materialized correlation pyramid: inference and training.
 
 Counterpart of `raft_optical_flow_tpu/models/raft.py`:
 
@@ -7,8 +7,18 @@ Counterpart of `raft_optical_flow_tpu/models/raft.py`:
   3. the correlation pyramid, one matmul per level against pooled fmap2;
   4. the GRU loop (a Python loop): windowed lookup, update block, coords
      update; coords stay fp32, the GRU state runs in the compute dtype;
-  5. upsampling: `upflow8` for RAFT-small; for RAFT-standard the mask is
-     carried through the loop and `convex_upsample` runs once after it.
+  5. upsampling: `upflow8` for RAFT-small, `convex_upsample` for
+     RAFT-standard.
+
+Test mode (`test_mode=True`, no autograd) returns (flow_low, flow_up): levels
+1..L-1 of the lookup go through one K2 launch, and RAFT-standard carries the
+mask through the loop and upsamples once after it. Training mode
+(`test_mode=False`) returns every iteration's upsampled flow, stacked
+[iters, N, H, W, 2]: coords are detached at the top of each iteration while
+gradients flow through the GRU state, and each level's lookup is K1 with K3
+as its backward (`kernels/corr_lookup.py::LookupLevel`). `train` turns on
+encoder dropout; BatchNorm trains (batch statistics, running statistics
+updated in place) when `train and not freeze_bn`.
 
 Policies (`RAFTConfig.compute_dtype`):
 
@@ -21,18 +31,19 @@ Policies (`RAFTConfig.compute_dtype`):
     the update block runs in bf16; parameters, coords, flow and the upsample
     stay fp32.
 
-Only test mode is ported. Training mode, `alternate_corr` and `fused_gru` raise
-NotImplementedError (ROADMAP.md lists them as later slices).
+`alternate_corr` and `fused_gru` raise NotImplementedError (ROADMAP.md lists
+them as later slices).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from raft_optical_flow_tpu_torch.kernels.corr_lookup import corr_pyramid_lookup_cuda
 from raft_optical_flow_tpu_torch.models.extractor import BasicEncoder, SmallEncoder
@@ -51,12 +62,18 @@ _NOT_PORTED = "not ported yet: see ROADMAP.md, Queue 1 and Queue 2"
 @dataclasses.dataclass(frozen=True)
 class RAFTConfig:
     small: bool = False
+    dropout: float = 0.0  # encoder channel dropout in training
     alternate_corr: bool = False
     corr_levels: int = 4
     # 'cuda': the CUDA lookup kernels (their plain version on CPU tensors);
     # 'plain': ops/corr.py's plain lookup everywhere
     corr_impl: str = "cuda"
     compute_dtype: torch.dtype = torch.float32
+    # training: recompute each GRU iteration in the backward
+    # (torch.utils.checkpoint) instead of storing its activations
+    remat: bool = False
+    # training: recompute the convex upsample's intermediates in the backward
+    checkpoint_upsample: bool = False
     fused_gru: bool = False
 
     @property
@@ -73,12 +90,15 @@ class RAFTConfig:
 
 
 class RAFT(nn.Module):
-    """RAFT flow estimator, test mode.
+    """RAFT flow estimator.
 
-    forward(image1, image2, iters, flow_init=None, test_mode=True):
+    forward(image1, image2, iters, flow_init=None, test_mode=True, train=False,
+            freeze_bn=True, generator=None):
       image1/image2: [N, H, W, 3] in [0, 255], H and W divisible by 8;
-      flow_init: optional [N, H/8, W/8, 2] warm start.
-      Returns (flow_low [N, H/8, W/8, 2], flow_up [N, H, W, 2]), fp32.
+      flow_init: optional [N, H/8, W/8, 2] warm start; generator: draws the
+      dropout masks when `train` and `config.dropout > 0`.
+      Returns, fp32: test_mode -> (flow_low [N, H/8, W/8, 2], flow_up
+      [N, H, W, 2]); else the predictions [iters, N, H, W, 2].
     """
 
     def __init__(self, config: RAFTConfig = RAFTConfig(), device="cuda",
@@ -96,65 +116,109 @@ class RAFT(nn.Module):
         corr_ch = config.corr_levels * (2 * config.corr_radius + 1) ** 2
         hdim, cdim = config.hidden_dim, config.context_dim
         if config.small:
-            self.fnet = SmallEncoder(128, "instance")
-            self.cnet = SmallEncoder(hdim + cdim, "none")
+            self.fnet = SmallEncoder(128, "instance", config.dropout)
+            self.cnet = SmallEncoder(hdim + cdim, "none", config.dropout)
             self.update_block = SmallUpdateBlock(corr_ch, hdim, cdim)
         else:
-            self.fnet = BasicEncoder(256, "instance")
-            self.cnet = BasicEncoder(hdim + cdim, "batch")
+            self.fnet = BasicEncoder(256, "instance", config.dropout)
+            self.cnet = BasicEncoder(hdim + cdim, "batch", config.dropout)
             self.update_block = BasicUpdateBlock(corr_ch, hdim, cdim)
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
         self.to(device)
         self.eval()
 
-    def _lookup(self, pyramid, coords1):
+    def _lookup(self, pyramid, coords1, test_mode: bool):
         cfg = self.config
         if cfg.corr_impl == "plain":
             return corr_pyramid_lookup(pyramid, coords1, cfg.corr_radius).to(cfg.compute_dtype)
-        # test mode: levels 1..L-1 go through one K2 launch
+        # serving fuses levels 1..L-1 into one K2 launch; training keeps the
+        # per-level K1 launches, whose backward is K3
         return corr_pyramid_lookup_cuda(
-            pyramid, coords1, cfg.corr_radius, out_dtype=cfg.compute_dtype, fuse_coarse=True,
+            pyramid, coords1, cfg.corr_radius, out_dtype=cfg.compute_dtype,
+            fuse_coarse=test_mode,
         )
 
-    @torch.no_grad()
     def forward(self, image1: torch.Tensor, image2: torch.Tensor, iters: int = 12,
-                flow_init: Optional[torch.Tensor] = None,
-                test_mode: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-        if not test_mode:
-            raise NotImplementedError(f"training mode is {_NOT_PORTED}")
+                flow_init: Optional[torch.Tensor] = None, test_mode: bool = True,
+                train: bool = False, freeze_bn: bool = True,
+                generator: Optional[torch.Generator] = None):
+        if self.config.compute_dtype == torch.float32:
+            fp32_policy()
+        if test_mode:
+            with torch.no_grad():
+                return self._test(*self._encode(image1, image2, False, False, None),
+                                  iters, flow_init)
+        # freeze_bn: BN uses running stats even in training; dropout follows train
+        state = self._encode(image1, image2, train, train and not freeze_bn, generator)
+        return self._train(*state, iters, flow_init)
+
+    def _encode(self, image1, image2, train, bn_train, generator):
+        """Encoders and pyramid: (pyramid, net, inp, coords0), NHWC coords."""
         cfg = self.config
         dtype = cfg.compute_dtype
-        if dtype == torch.float32:
-            fp32_policy()
         N, H, W, _ = image1.shape
-        h, w = H // 8, W // 8
-
         image1 = 2.0 * (image1.float() / 255.0) - 1.0
         image2 = 2.0 * (image2.float() / 255.0) - 1.0
         pair = torch.cat([image1, image2], dim=0).permute(0, 3, 1, 2).to(dtype)
-        fmaps = self.fnet(pair).float().permute(0, 2, 3, 1)  # NHWC fp32
+        fmaps = self.fnet(pair, train, bn_train, generator).float().permute(0, 2, 3, 1)
         fmap1, fmap2 = fmaps[:N], fmaps[N:]
         pyramid = build_corr_pyramid_from_fmaps(fmap1, fmap2, cfg.corr_levels, dtype)
 
-        cnet = self.cnet(image1.permute(0, 3, 1, 2).to(dtype)).float()
+        cnet = self.cnet(image1.permute(0, 3, 1, 2).to(dtype), train, bn_train, generator).float()
         net, inp = torch.split(cnet, [cfg.hidden_dim, cfg.context_dim], dim=1)
         net = torch.tanh(net).to(dtype)
         inp = F.relu(inp).to(dtype)
+        coords0 = coords_grid(N, H // 8, W // 8, device=image1.device)
+        return pyramid, net, inp, coords0
 
-        coords0 = coords_grid(N, h, w, device=image1.device)
+    def _step(self, pyramid, net, inp, coords0, coords1, test_mode: bool):
+        """One GRU iteration: (net, mask or None, coords1 + delta)."""
+        dtype = self.config.compute_dtype
+        corr = self._lookup(pyramid, coords1, test_mode).permute(0, 3, 1, 2)
+        flow = (coords1 - coords0).to(dtype).permute(0, 3, 1, 2)
+        net, mask, delta = self.update_block(net, inp, corr, flow)
+        return net, mask, coords1 + delta.float().permute(0, 2, 3, 1)
+
+    def _test(self, pyramid, net, inp, coords0, iters, flow_init):
+        cfg = self.config
+        N, h, w, _ = coords0.shape
         coords1 = coords0 if flow_init is None else coords0 + flow_init.float()
         mask = None
         for _ in range(iters):
-            corr = self._lookup(pyramid, coords1).permute(0, 3, 1, 2)
-            flow = (coords1 - coords0).to(dtype).permute(0, 3, 1, 2)
-            net, mask, delta = self.update_block(net, inp, corr, flow)
-            coords1 = coords1 + delta.float().permute(0, 2, 3, 1)
+            net, mask, coords1 = self._step(pyramid, net, inp, coords0, coords1, True)
 
         flow_lo = coords1 - coords0
         if cfg.small:
             flow_up = upflow8(flow_lo)
         else:
             if mask is None:  # iters == 0: the JAX package starts from a zero mask
-                mask = torch.zeros(N, 64 * 9, h, w, dtype=dtype, device=image1.device)
+                mask = torch.zeros(N, 64 * 9, h, w, dtype=cfg.compute_dtype, device=coords0.device)
             flow_up = convex_upsample(flow_lo, mask.float().permute(0, 2, 3, 1))
         return flow_lo, flow_up
+
+    def _train_iteration(self, pyramid, net, inp, coords0, coords1):
+        """One training iteration: (net, coords1, flow_up [N, H, W, 2])."""
+        cfg = self.config
+        coords1 = coords1.detach()  # gradients flow through net, not coords
+        net, mask, coords1 = self._step(pyramid, net, inp, coords0, coords1, False)
+        flow_lo = coords1 - coords0
+        if cfg.small:
+            return net, coords1, upflow8(flow_lo)
+        mask = mask.float().permute(0, 2, 3, 1)
+        if cfg.checkpoint_upsample:
+            return net, coords1, checkpoint(convex_upsample, flow_lo, mask, use_reentrant=False)
+        return net, coords1, convex_upsample(flow_lo, mask)
+
+    def _train(self, pyramid, net, inp, coords0, iters, flow_init):
+        coords1 = coords0 if flow_init is None else coords0 + flow_init.float()
+        preds = []
+        for _ in range(iters):
+            if self.config.remat:
+                net, coords1, flow_up = checkpoint(
+                    self._train_iteration, pyramid, net, inp, coords0, coords1,
+                    use_reentrant=False,
+                )
+            else:
+                net, coords1, flow_up = self._train_iteration(pyramid, net, inp, coords0, coords1)
+            preds.append(flow_up)
+        return torch.stack(preds)

@@ -10,6 +10,9 @@ The JAX package stores flax variable trees as flat `.npz` files whose keys are
   - BatchNorm `batch_stats` `mean`/`var` -> `running_mean`/`running_var`;
   - the scanned update block's extra level, `update_block/block/...`, is
     dropped: the port runs the block in a plain loop as `update_block`.
+
+`state_dict_to_flax` is the inverse, and `save_flax_checkpoint` writes the
+flat `.npz` that the JAX package's `load_flax_checkpoint` reads.
 """
 
 from __future__ import annotations
@@ -84,3 +87,35 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 def load_flax_npz(path: str) -> Dict[str, torch.Tensor]:
     """`flax_to_state_dict(load_flax_checkpoint(path))`."""
     return flax_to_state_dict(load_flax_checkpoint(path))
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's `state_dict` as a flax variable tree of fp32 numpy arrays:
+    `{'params': ..., 'batch_stats': ...}` (no `batch_stats` when the model has
+    no BatchNorm), the inverse of `flax_to_state_dict`."""
+    stats = {v: k for k, v in _BN_STATS.items()}
+    tree: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        *mod, name = key.split(".")
+        if mod[:1] == ["update_block"]:
+            mod = ["update_block", "block"] + mod[1:]
+        v = value.detach().cpu().float().numpy()
+        if name in stats:
+            _set_path(tree, ("batch_stats", *mod, stats[name]), v)
+        elif name == "weight" and v.ndim == 4:
+            _set_path(tree, ("params", *mod, "kernel"), np.ascontiguousarray(v.transpose(2, 3, 1, 0)))
+        elif name == "weight" and v.ndim == 1:
+            _set_path(tree, ("params", *mod, "scale"), v)
+        elif name == "bias":
+            _set_path(tree, ("params", *mod, "bias"), v)
+        else:
+            raise ValueError(f"unhandled state_dict entry {key} {tuple(v.shape)}")
+    return tree
+
+
+def save_flax_checkpoint(variables: Mapping[str, Any], path: str) -> None:
+    """Write a flax variable tree as a flat `.npz` ('/'-joined keys).
+
+    Own copy of `raft_optical_flow_tpu.utils.torch_convert.save_flax_checkpoint`.
+    """
+    np.savez(path, **{"/".join(k): np.asarray(v) for k, v in _flatten(variables)})

@@ -14,8 +14,11 @@ import os
 
 import pytest
 
+from raft_optical_flow_tpu_torch.cli import train_raft
+from raft_optical_flow_tpu_torch.data.pipeline import prefetch_to_device
 from raft_optical_flow_tpu_torch.models import RAFT
 from raft_optical_flow_tpu_torch.ops.grid import coords_grid
+from raft_optical_flow_tpu_torch.train.trainer import RAFTTrainer, create_train_state
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "raft_optical_flow_tpu_torch")
@@ -44,7 +47,10 @@ def _imports(path):
 def test_sources_found():
     srcs = _sources()
     assert len(srcs) >= 15
-    assert os.path.join(PORT, "kernels", "corr_lookup.py") in srcs
+    for rel in (("kernels", "corr_lookup.py"), ("train", "trainer.py"), ("cli", "train_raft.py"),
+                ("losses", "sequence.py"), ("utils", "checkpoint.py"), ("data", "pipeline.py"),
+                ("data", "synthetic.py"), ("train", "configs.py")):
+        assert os.path.join(PORT, *rel) in srcs
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
@@ -76,3 +82,9 @@ def test_kernel_source_is_cuda_for_sm90a():
 def test_entry_points_default_to_cuda():
     assert inspect.signature(RAFT.__init__).parameters["device"].default == "cuda"
     assert inspect.signature(coords_grid).parameters["device"].default == "cuda"
+
+
+def test_training_entry_points_default_to_cuda():
+    for fn in (RAFTTrainer.__init__, create_train_state, prefetch_to_device):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert train_raft.parse_args(["--stage", "chairs"]).device == "cuda"

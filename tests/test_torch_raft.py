@@ -132,7 +132,8 @@ def test_cpu_run_launches_no_kernel(golden):
     model = _port(RAFTConfig(small=True), load_flax_npz(CKPT))
     ck.reset_launches()
     model(torch.from_numpy(i1), torch.from_numpy(i2), iters=2)
-    assert ck.LAUNCHES == {"corr_lookup_level": 0, "corr_lookup_coarse_fused": 0}
+    assert ck.LAUNCHES == {"corr_lookup_level": 0, "corr_lookup_coarse_fused": 0,
+                           "corr_lookup_level_bwd": 0}
 
 
 def test_zero_iterations_standard():
@@ -147,7 +148,7 @@ def test_zero_iterations_standard():
     [
         (RAFTConfig(alternate_corr=True), {}),
         (RAFTConfig(fused_gru=True), {}),
-        (RAFTConfig(small=True), {"test_mode": False}),
+        (RAFTConfig(small=True, alternate_corr=True), {"test_mode": False}),
     ],
 )
 def test_unported_paths_raise(config, kwargs):

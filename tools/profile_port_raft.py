@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Profile one RAFT-standard forward of the PyTorch port on the GPU.
+"""Profile one RAFT-standard forward or training step of the PyTorch port on the GPU.
 
     python3 tools/profile_port_raft.py [--batch 16] [--iters 32] [--dtype bf16]
+    python3 tools/profile_port_raft.py --mode train [--batch 4] [--iters 12]
 
-The serving workload of `bench.py::main` (1024x436 frames padded to 1024x440,
-test mode, seeded random weights and frames) runs once to warm up, then once
-under `torch.profiler`. Prints the device time by kernel (the 20 largest), the
-time per group (the port's CUDA lookup kernels, convolutions, matmuls, the
-rest), and the device busy share: summed kernel time over the host-clock wall
-time of the profiled call (the profiler's own host overhead is inside that
-wall time, so the share is a lower bound). `--trace PATH` also writes the
-Chrome trace. Needs a CUDA card.
+`--mode serve` (default): the serving workload of `bench.py::main` (1024x436
+frames padded to 1024x440, test mode). `--mode train`: one training step of
+`tools/bench_train.py`'s `standard` config (368x496, frozen BatchNorm,
+sequence loss, backward, clipped AdamW). Seeded random weights and data. The
+call runs twice to warm up, then once under `torch.profiler`. Prints the
+device time by kernel (the 20 largest), the time per group (the port's CUDA
+lookup kernels, convolutions, matmuls, the rest), and the device busy share:
+summed kernel time over the host-clock wall time of the profiled call (the
+profiler's own host overhead is inside that wall time, so the share is a
+lower bound). `--trace PATH` also writes the Chrome trace. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -27,16 +30,47 @@ from torch.profiler import ProfilerActivity, profile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = (
-    ("lookup kernels (port)", re.compile(r"lookup_level_kernel|coarse_fused_kernel")),
+    ("lookup kernels (port)", re.compile(r"lookup_level_kernel|coarse_fused_kernel|"
+                                         r"lookup_level_bwd_kernel")),
     ("convolution", re.compile(r"conv|fprop|implicit|dgrad|cudnn|xmma", re.I)),
     ("matmul", re.compile(r"gemm|cutlass|cublas", re.I)),
 )
 
 
+def _serve_call(config, batch, iters):
+    from raft_optical_flow_tpu_torch.models import RAFT
+    from raft_optical_flow_tpu_torch.ops.padding import InputPadder
+
+    model = RAFT(config, device="cuda", generator=torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(batch)
+    frames = [torch.from_numpy(rng.uniform(0, 255, (batch, 436, 1024, 3))
+                               .astype(np.float32)).cuda() for _ in range(2)]
+    img1, img2 = InputPadder(frames[0].shape, mode="sintel").pad(*frames)
+    return lambda: model(img1, img2, iters=iters)
+
+
+def _train_call(config, batch, iters):
+    from raft_optical_flow_tpu_torch.train.configs import StageConfig
+    from raft_optical_flow_tpu_torch.train.trainer import create_train_state, raft_train_step
+
+    stage = StageConfig(name="profile", stage="things", num_steps=100, batch_size=batch,
+                        lr=1.25e-4, image_size=(368, 496))
+    state = create_train_state(config, stage, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    data = {
+        "image1": torch.rand(batch, 368, 496, 3, device="cuda", generator=g) * 255.0,
+        "image2": torch.rand(batch, 368, 496, 3, device="cuda", generator=g) * 255.0,
+        "flow": torch.rand(batch, 368, 496, 2, device="cuda", generator=g) * 10.0 - 5.0,
+        "valid": torch.ones(batch, 368, 496, device="cuda"),
+    }
+    return lambda: raft_train_step(state, data, iters=iters, freeze_bn=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=16)
-    ap.add_argument("--iters", type=int, default=32)
+    ap.add_argument("--mode", choices=("serve", "train"), default="serve")
+    ap.add_argument("--batch", type=int, default=None, help="default 16 serving, 4 training")
+    ap.add_argument("--iters", type=int, default=None, help="default 32 serving, 12 training")
     ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
     ap.add_argument("--trace", metavar="PATH", help="write the Chrome trace to PATH")
     args = ap.parse_args()
@@ -44,28 +78,26 @@ def main() -> int:
         print("profile_port_raft: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from raft_optical_flow_tpu_torch.models import RAFT, RAFTConfig
-    from raft_optical_flow_tpu_torch.ops.padding import InputPadder
+    from raft_optical_flow_tpu_torch.models import RAFTConfig
 
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    model = RAFT(RAFTConfig(compute_dtype=dtype), device="cuda",
-                 generator=torch.Generator().manual_seed(0))
-    rng = np.random.RandomState(args.batch)
-    frames = [torch.from_numpy(rng.uniform(0, 255, (args.batch, 436, 1024, 3))
-                               .astype(np.float32)).cuda() for _ in range(2)]
-    img1, img2 = InputPadder(frames[0].shape, mode="sintel").pad(*frames)
-    model(img1, img2, iters=args.iters)
+    train = args.mode == "train"
+    batch = args.batch or (4 if train else 16)
+    iters = args.iters or (12 if train else 32)
+    run = (_train_call if train else _serve_call)(RAFTConfig(compute_dtype=dtype), batch, iters)
+    for _ in range(2):
+        run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model(img1, img2, iters=args.iters)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     kernels = []
     for e in prof.key_averages():
-        if "CUDA" not in str(e.device_type):
-            continue
+        if "CUDA" not in str(e.device_type) or getattr(e, "is_user_annotation", False):
+            continue  # annotated ranges (Optimizer.step) would count their kernels twice
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
@@ -75,7 +107,7 @@ def main() -> int:
     device_ms = sum(k[0] for k in kernels)
     if device_ms == 0:
         raise RuntimeError("the profiler recorded no device time")
-    print(f"{torch.cuda.get_device_name(0)} batch={args.batch} iters={args.iters} "
+    print(f"{torch.cuda.get_device_name(0)} mode={args.mode} batch={batch} iters={iters} "
           f"dtype={args.dtype}: wall {wall_ms:.3f} ms (profiled), device {device_ms:.3f} ms, "
           f"busy share {device_ms / wall_ms:.4f}")
     totals = {name: 0.0 for name, _ in GROUPS}
