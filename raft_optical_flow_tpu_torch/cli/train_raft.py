@@ -67,10 +67,6 @@ def main(argv=None):
     if args.validation:
         raise NotImplementedError(
             "--validation is not ported yet (ROADMAP.md Queue 1 item 7, validators)")
-    if args.alternate_corr:
-        raise NotImplementedError(
-            "--alternate_corr is not ported yet (ROADMAP.md Queue 1 item 9, "
-            "on-demand correlation)")
 
     import torch
 
@@ -91,7 +87,7 @@ def main(argv=None):
         val_freq=args.val_freq, seed=args.seed,
     )
     config = RAFTConfig(
-        small=args.small, dropout=args.dropout,
+        small=args.small, dropout=args.dropout, alternate_corr=args.alternate_corr,
         compute_dtype=torch.bfloat16 if args.mixed_precision else torch.float32,
     )
     try:

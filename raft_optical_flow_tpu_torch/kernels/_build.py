@@ -1,10 +1,13 @@
 """Build the package's CUDA kernels with nvcc and load them through ctypes.
 
-Every `kernels/csrc/*.cu` source is compiled by one nvcc call into one shared
-library with a plain C interface:
+Every `kernels/csrc/*.cu` source is compiled by its own nvcc process, all
+started together, and the objects are linked into one shared library with a
+plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/libraft_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -Xptxas -v -c -o <objs>/<source>.o csrc/<source>.cu    (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o _build/libraft_kernels_<hash>.so <objs>/*.o
 
 on first use, into `raft_optical_flow_tpu_torch/_build/` (git-ignored). The
 file name carries a hash of the sources and flags, so a changed source builds
@@ -27,8 +30,7 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                           "-Xptxas", "-v"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # time of the build this process ran, if any
@@ -66,16 +68,35 @@ def build() -> Path:
     lib = library_path()
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj_dir = lib.with_suffix(f".{os.getpid()}.objs")
+    obj_dir.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj_dir / f"{src.stem}.o"), str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *sorted(str(o) for o in obj_dir.glob("*.o"))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    build_log = "".join(logs)
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib)  # atomic: a concurrent process sees all or nothing
     return lib
 

@@ -1,10 +1,14 @@
-"""RAFT over the materialized correlation pyramid: inference and training.
+"""RAFT: inference and training, over the materialized correlation pyramid
+or the on-demand correlation.
 
 Counterpart of `raft_optical_flow_tpu/models/raft.py`:
 
   1. normalize the NHWC images to [-1, 1];
   2. fnet on both frames batch-folded, cnet on frame 1 (NCHW inside);
-  3. the correlation pyramid, one matmul per level against pooled fmap2;
+  3. the correlation pyramid, one matmul per level against pooled fmap2; or,
+     with `alternate_corr`, fmap1 and the fmap2 pyramid (2x2 floor-mode
+     average pooling of the fp32 fmap2), from which every lookup computes
+     its windows on demand (`kernels/corr_ondemand.py`, alt_cuda_corr);
   4. the GRU loop (a Python loop): windowed lookup, update block, coords
      update; coords stay fp32, the GRU state runs in the compute dtype;
   5. upsampling: `upflow8` for RAFT-small, `convex_upsample` for
@@ -16,7 +20,9 @@ mask through the loop and upsamples once after it. Training mode
 (`test_mode=False`) returns every iteration's upsampled flow, stacked
 [iters, N, H, W, 2]: coords are detached at the top of each iteration while
 gradients flow through the GRU state, and each level's lookup is K1 with K3
-as its backward (`kernels/corr_lookup.py::LookupLevel`). `train` turns on
+as its backward (`kernels/corr_lookup.py::LookupLevel`); the on-demand
+lookup is K4 in both modes, with K5 and K6 as its backward
+(`kernels/corr_ondemand.py::OndemandCorr`). `train` turns on
 encoder dropout; BatchNorm trains (batch statistics, running statistics
 updated in place) when `train and not freeze_bn`.
 
@@ -29,10 +35,12 @@ Policies (`RAFTConfig.compute_dtype`):
     volume matmul takes bf16 operands with fp32 accumulation and the volume is
     stored in bf16; the lookup writes bf16 windows (fp32 sums, one rounding);
     the update block runs in bf16; parameters, coords, flow and the upsample
-    stay fp32.
+    stay fp32. With `alternate_corr`, fmap1 and the fmap2 levels are cast
+    to bf16 once per forward and the on-demand windows take bf16 operands
+    with fp32 sums (the JAX package's Precision.DEFAULT); under fp32 they
+    stay fp32, no TF32.
 
-`alternate_corr` and `fused_gru` raise NotImplementedError (ROADMAP.md lists
-them as later slices).
+`fused_gru` raises NotImplementedError (ROADMAP.md lists it as a later slice).
 """
 
 from __future__ import annotations
@@ -46,10 +54,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from raft_optical_flow_tpu_torch.kernels.corr_lookup import corr_pyramid_lookup_cuda
+from raft_optical_flow_tpu_torch.kernels.corr_ondemand import (
+    ondemand_corr_pyramid_cuda,
+    ondemand_corr_pyramid_plain,
+)
 from raft_optical_flow_tpu_torch.models.extractor import BasicEncoder, SmallEncoder
 from raft_optical_flow_tpu_torch.models.layers import fp32_policy, init_weights
 from raft_optical_flow_tpu_torch.models.update import BasicUpdateBlock, SmallUpdateBlock
 from raft_optical_flow_tpu_torch.ops.corr import (
+    avg_pool2x2,
     build_corr_pyramid_from_fmaps,
     corr_pyramid_lookup,
 )
@@ -63,10 +76,11 @@ _NOT_PORTED = "not ported yet: see ROADMAP.md, Queue 1 and Queue 2"
 class RAFTConfig:
     small: bool = False
     dropout: float = 0.0  # encoder channel dropout in training
+    # on-demand correlation: no all-pairs volume (alt_cuda_corr)
     alternate_corr: bool = False
     corr_levels: int = 4
-    # 'cuda': the CUDA lookup kernels (their plain version on CPU tensors);
-    # 'plain': ops/corr.py's plain lookup everywhere
+    # 'cuda': the CUDA lookup kernels (their plain versions on CPU tensors);
+    # 'plain': the plain versions everywhere
     corr_impl: str = "cuda"
     compute_dtype: torch.dtype = torch.float32
     # training: recompute each GRU iteration in the backward
@@ -104,8 +118,6 @@ class RAFT(nn.Module):
     def __init__(self, config: RAFTConfig = RAFTConfig(), device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.alternate_corr:
-            raise NotImplementedError(f"alternate_corr is {_NOT_PORTED}")
         if config.fused_gru:
             raise NotImplementedError(f"fused_gru is {_NOT_PORTED}")
         if config.corr_impl not in ("cuda", "plain"):
@@ -127,14 +139,19 @@ class RAFT(nn.Module):
         self.to(device)
         self.eval()
 
-    def _lookup(self, pyramid, coords1, test_mode: bool):
+    def _lookup(self, corr_state, coords1, test_mode: bool):
         cfg = self.config
+        if cfg.alternate_corr:
+            fmap1, f2_levels = corr_state
+            lookup = (ondemand_corr_pyramid_plain if cfg.corr_impl == "plain"
+                      else ondemand_corr_pyramid_cuda)
+            return lookup(fmap1, f2_levels, coords1, cfg.corr_radius, cfg.compute_dtype)
         if cfg.corr_impl == "plain":
-            return corr_pyramid_lookup(pyramid, coords1, cfg.corr_radius).to(cfg.compute_dtype)
+            return corr_pyramid_lookup(corr_state, coords1, cfg.corr_radius).to(cfg.compute_dtype)
         # serving fuses levels 1..L-1 into one K2 launch; training keeps the
         # per-level K1 launches, whose backward is K3
         return corr_pyramid_lookup_cuda(
-            pyramid, coords1, cfg.corr_radius, out_dtype=cfg.compute_dtype,
+            corr_state, coords1, cfg.corr_radius, out_dtype=cfg.compute_dtype,
             fuse_coarse=test_mode,
         )
 
@@ -153,7 +170,8 @@ class RAFT(nn.Module):
         return self._train(*state, iters, flow_init)
 
     def _encode(self, image1, image2, train, bn_train, generator):
-        """Encoders and pyramid: (pyramid, net, inp, coords0), NHWC coords."""
+        """Encoders and correlation state: (pyramid or (fmap1, fmap2 levels),
+        net, inp, coords0), NHWC coords."""
         cfg = self.config
         dtype = cfg.compute_dtype
         N, H, W, _ = image1.shape
@@ -162,30 +180,38 @@ class RAFT(nn.Module):
         pair = torch.cat([image1, image2], dim=0).permute(0, 3, 1, 2).to(dtype)
         fmaps = self.fnet(pair, train, bn_train, generator).float().permute(0, 2, 3, 1)
         fmap1, fmap2 = fmaps[:N], fmaps[N:]
-        pyramid = build_corr_pyramid_from_fmaps(fmap1, fmap2, cfg.corr_levels, dtype)
+        if cfg.alternate_corr:
+            # pool in fp32, then round once (bf16 policy) for every iteration
+            levels = [fmap2]
+            for _ in range(cfg.corr_levels - 1):
+                levels.append(avg_pool2x2(levels[-1].permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
+            corr_state = (fmap1.to(dtype).contiguous(),
+                          tuple(f.to(dtype).contiguous() for f in levels))
+        else:
+            corr_state = build_corr_pyramid_from_fmaps(fmap1, fmap2, cfg.corr_levels, dtype)
 
         cnet = self.cnet(image1.permute(0, 3, 1, 2).to(dtype), train, bn_train, generator).float()
         net, inp = torch.split(cnet, [cfg.hidden_dim, cfg.context_dim], dim=1)
         net = torch.tanh(net).to(dtype)
         inp = F.relu(inp).to(dtype)
         coords0 = coords_grid(N, H // 8, W // 8, device=image1.device)
-        return pyramid, net, inp, coords0
+        return corr_state, net, inp, coords0
 
-    def _step(self, pyramid, net, inp, coords0, coords1, test_mode: bool):
+    def _step(self, corr_state, net, inp, coords0, coords1, test_mode: bool):
         """One GRU iteration: (net, mask or None, coords1 + delta)."""
         dtype = self.config.compute_dtype
-        corr = self._lookup(pyramid, coords1, test_mode).permute(0, 3, 1, 2)
+        corr = self._lookup(corr_state, coords1, test_mode).permute(0, 3, 1, 2)
         flow = (coords1 - coords0).to(dtype).permute(0, 3, 1, 2)
         net, mask, delta = self.update_block(net, inp, corr, flow)
         return net, mask, coords1 + delta.float().permute(0, 2, 3, 1)
 
-    def _test(self, pyramid, net, inp, coords0, iters, flow_init):
+    def _test(self, corr_state, net, inp, coords0, iters, flow_init):
         cfg = self.config
         N, h, w, _ = coords0.shape
         coords1 = coords0 if flow_init is None else coords0 + flow_init.float()
         mask = None
         for _ in range(iters):
-            net, mask, coords1 = self._step(pyramid, net, inp, coords0, coords1, True)
+            net, mask, coords1 = self._step(corr_state, net, inp, coords0, coords1, True)
 
         flow_lo = coords1 - coords0
         if cfg.small:
@@ -196,11 +222,11 @@ class RAFT(nn.Module):
             flow_up = convex_upsample(flow_lo, mask.float().permute(0, 2, 3, 1))
         return flow_lo, flow_up
 
-    def _train_iteration(self, pyramid, net, inp, coords0, coords1):
+    def _train_iteration(self, corr_state, net, inp, coords0, coords1):
         """One training iteration: (net, coords1, flow_up [N, H, W, 2])."""
         cfg = self.config
         coords1 = coords1.detach()  # gradients flow through net, not coords
-        net, mask, coords1 = self._step(pyramid, net, inp, coords0, coords1, False)
+        net, mask, coords1 = self._step(corr_state, net, inp, coords0, coords1, False)
         flow_lo = coords1 - coords0
         if cfg.small:
             return net, coords1, upflow8(flow_lo)
@@ -209,16 +235,16 @@ class RAFT(nn.Module):
             return net, coords1, checkpoint(convex_upsample, flow_lo, mask, use_reentrant=False)
         return net, coords1, convex_upsample(flow_lo, mask)
 
-    def _train(self, pyramid, net, inp, coords0, iters, flow_init):
+    def _train(self, corr_state, net, inp, coords0, iters, flow_init):
         coords1 = coords0 if flow_init is None else coords0 + flow_init.float()
         preds = []
         for _ in range(iters):
             if self.config.remat:
                 net, coords1, flow_up = checkpoint(
-                    self._train_iteration, pyramid, net, inp, coords0, coords1,
+                    self._train_iteration, corr_state, net, inp, coords0, coords1,
                     use_reentrant=False,
                 )
             else:
-                net, coords1, flow_up = self._train_iteration(pyramid, net, inp, coords0, coords1)
+                net, coords1, flow_up = self._train_iteration(corr_state, net, inp, coords0, coords1)
             preds.append(flow_up)
         return torch.stack(preds)

@@ -146,9 +146,9 @@ def test_zero_iterations_standard():
 @pytest.mark.parametrize(
     "config,kwargs",
     [
-        (RAFTConfig(alternate_corr=True), {}),
+        (RAFTConfig(small=True, fused_gru=True), {"test_mode": False}),
         (RAFTConfig(fused_gru=True), {}),
-        (RAFTConfig(small=True, alternate_corr=True), {"test_mode": False}),
+        (RAFTConfig(fused_gru=True, alternate_corr=True), {}),
     ],
 )
 def test_unported_paths_raise(config, kwargs):

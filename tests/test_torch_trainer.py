@@ -198,8 +198,7 @@ def test_prefetch_to_device_feeds_and_stops():
         next(feed)
 
 
-@pytest.mark.parametrize("extra", [[], ["--validation", "chairs"], ["--alternate_corr"],
-                                   ["--data_root", "datasets"]])
+@pytest.mark.parametrize("extra", [[], ["--validation", "chairs"], ["--data_root", "datasets"]])
 def test_cli_refuses_unported_paths(extra):
     args = ["--stage", "chairs"] + (["--synthetic"] if extra else []) + extra
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -212,6 +211,18 @@ def test_cli_rejects_a_crop_the_frames_cannot_hold(tmp_path):
     with pytest.raises(ValueError, match="at most 168x296"):
         train_raft.main(args)
     assert not os.listdir(tmp_path)  # refused before the trainer was built
+
+
+def test_cli_trains_with_alternate_corr(tmp_path):
+    """`--alternate_corr` trains through the on-demand correlation: two
+    steps on the CPU, then the checkpoints."""
+    args = ["--stage", "chairs", "--synthetic", "--small", "--alternate_corr", "--device", "cpu",
+            "--num_steps", "2", "--image_size", "64", "96", "--batch_size", "2", "--iters", "2",
+            "--num_workers", "1", "--checkpoint_dir", str(tmp_path)]
+    assert train_raft.parse_args(args).alternate_corr
+    train_raft.main(args)
+    assert os.path.exists(tmp_path / "raft.npz")
+    assert os.path.exists(tmp_path / "raft_state" / "latest.pt")
 
 
 def test_cli_trains_and_writes_checkpoints(tmp_path):

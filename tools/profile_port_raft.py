@@ -3,11 +3,15 @@
 
     python3 tools/profile_port_raft.py [--batch 16] [--iters 32] [--dtype bf16]
     python3 tools/profile_port_raft.py --mode train [--batch 4] [--iters 12]
+    python3 tools/profile_port_raft.py [--mode train] --alternate_corr [--remat]
 
 `--mode serve` (default): the serving workload of `bench.py::main` (1024x436
 frames padded to 1024x440, test mode). `--mode train`: one training step of
 `tools/bench_train.py`'s `standard` config (368x496, frozen BatchNorm,
-sequence loss, backward, clipped AdamW). Seeded random weights and data. The
+sequence loss, backward, clipped AdamW). `--alternate_corr` runs the
+on-demand correlation (K4 forward, K5 and K6 backward) instead of the
+materialized volume; `--remat` recomputes each GRU iteration in the
+backward. Seeded random weights and data. The
 call runs twice to warm up, then once under `torch.profiler`. Prints the
 device time by kernel (the 20 largest), the time per group (the port's CUDA
 lookup kernels, convolutions, matmuls, the rest), and the device busy share:
@@ -31,7 +35,7 @@ from torch.profiler import ProfilerActivity, profile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = (
     ("lookup kernels (port)", re.compile(r"lookup_level_kernel|coarse_fused_kernel|"
-                                         r"lookup_level_bwd_kernel")),
+                                         r"lookup_level_bwd_kernel|ondemand_")),
     ("convolution", re.compile(r"conv|fprop|implicit|dgrad|cudnn|xmma", re.I)),
     ("matmul", re.compile(r"gemm|cutlass|cublas", re.I)),
 )
@@ -72,6 +76,8 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=None, help="default 16 serving, 4 training")
     ap.add_argument("--iters", type=int, default=None, help="default 32 serving, 12 training")
     ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
+    ap.add_argument("--alternate_corr", action="store_true", help="on-demand correlation")
+    ap.add_argument("--remat", action="store_true", help="recompute each GRU iteration")
     ap.add_argument("--trace", metavar="PATH", help="write the Chrome trace to PATH")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -84,7 +90,8 @@ def main() -> int:
     train = args.mode == "train"
     batch = args.batch or (4 if train else 16)
     iters = args.iters or (12 if train else 32)
-    run = (_train_call if train else _serve_call)(RAFTConfig(compute_dtype=dtype), batch, iters)
+    config = RAFTConfig(compute_dtype=dtype, alternate_corr=args.alternate_corr, remat=args.remat)
+    run = (_train_call if train else _serve_call)(config, batch, iters)
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -108,7 +115,7 @@ def main() -> int:
     if device_ms == 0:
         raise RuntimeError("the profiler recorded no device time")
     print(f"{torch.cuda.get_device_name(0)} mode={args.mode} batch={batch} iters={iters} "
-          f"dtype={args.dtype}: wall {wall_ms:.3f} ms (profiled), device {device_ms:.3f} ms, "
+          f"dtype={args.dtype} alternate_corr={args.alternate_corr} remat={args.remat}: wall {wall_ms:.3f} ms (profiled), device {device_ms:.3f} ms, "
           f"busy share {device_ms / wall_ms:.4f}")
     totals = {name: 0.0 for name, _ in GROUPS}
     totals["other (elementwise, norms, copies)"] = 0.0
