@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`raft_optical_flow_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--phases device,kernels,small,standard,train,ondemand,timing]
+    python3 chip_smoke.py [--phases device,kernels,small,standard,train,ondemand,fused_gru,timing]
 
 Phases (each prints one line when it ends; any failure raises and the exit
 code is not 0):
@@ -15,7 +15,10 @@ code is not 0):
             and bf16 volumes, outputs and cotangents, far out-of-bounds coords
             and a crop whose deepest level is empty; and at the training
             shapes (368x496: levels 46x62 .. 5x7, radius 4), batch 4 bf16
-            and batch 10 fp32;
+            and batch 10 fp32; K8 (corr_lookup_all_levels, every level in
+            one launch) bit for bit with its plain version at the same
+            inputs, then its public entry driven once (no model path
+            launches it);
   small     RAFT-small, fp32 with TF32 off, checkpoint weights, against the
             reference golden (tests/goldens/raft_small.npz); the kernels'
             launch counts must rise by `iters` each;
@@ -45,13 +48,26 @@ code is not 0):
             train step through K4-K6 against one through the plain versions,
             and the kernel step run twice; the bf16 batch-4 368x496 training
             step, remat off and on (ms/step, peak memory, launches per step);
-  timing    K1, K2 and K4 at the batch-16 serving shapes, K3, K5 and K6 at
+  fused_gru the fused SepConvGRU (`fused_gru`): K7 (sepconv_gru_pass) against
+            its plain version pass by pass at the batch-16 bf16 serving shape,
+            the batch-4 fp32 training shape, W = 37 and the 1-high and
+            1-wide levels; RAFT-standard bf16 serving (1024x440, 32
+            iterations) at batch 16 and 1 and fp32 at batch 1 against the
+            unfused path with the same weights (64 K7 launches per forward;
+            ms, pairs/s, peak memory of both); one fp32 training step (batch
+            2, 368x496, 12 iterations) against the unfused one, against the
+            unfused one pinned to K7's GRU values, and against itself; the
+            bf16 fused training step must raise; alternate_corr with
+            fused_gru;
+  timing    K1, K2, K4, K7 and K8 at the batch-16 serving shapes, K3, K5 and K6 at
             the batch-4 training shapes, each first held against its plain
             version on the inputs it is timed on: kernel, plain version, a
             PyTorch library yardstick (F.grid_sample, its backward, and for
             K4-K6 the dot with fmap1; timed only, never used by the port),
             and the bound: bytes at 3.35 TB/s or operations at the peak rate
-            of the operands' type, whichever is larger.
+            of the operands' type, whichever is larger. K7's yardstick is the
+            unfused SepConvGRU pass (three cuDNN convs and their elementwise
+            work), K8's the four F.grid_sample calls.
 
 With every phase run (the default) the last two lines are a JSON object of
 per-kernel numbers and `{"ok": true, "device": {...}}`. Runs on CUDA only: it
@@ -64,6 +80,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -74,7 +91,7 @@ import torch
 import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "kernels", "small", "standard", "train", "ondemand", "timing")
+PHASES = ("device", "kernels", "small", "standard", "train", "ondemand", "fused_gru", "timing")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16, dense tensor cores
@@ -83,6 +100,7 @@ SERVE_HW = (436, 1024)  # bench.py::main: Sintel frames, padded to 440x1024
 ITERS = 32
 TRAIN_HW = (368, 496)  # tools/bench_train.py `standard` and the chairs crop
 TRAIN_ITERS = 12
+GATE_ITERS = 1  # depth of the fused-vs-unfused gradient gate (_fused_train)
 K1_SRC = "raft_optical_flow_tpu_torch/kernels/csrc/corr_lookup.cu"
 K1_TPU = "raft_optical_flow_tpu/kernels/corr_lookup.py:72"  # _lookup_level_kernel
 K2_TPU = "raft_optical_flow_tpu/kernels/corr_lookup.py:337"  # _coarse_fused_kernel
@@ -91,6 +109,9 @@ K4_SRC = "raft_optical_flow_tpu_torch/kernels/csrc/corr_ondemand.cu"
 K4_TPU = "raft_optical_flow_tpu/kernels/corr_ondemand_pallas.py:129"  # _fwd_level_kernel
 K5_TPU = "raft_optical_flow_tpu/kernels/corr_ondemand_pallas.py:251"  # _bwd_df1_kernel
 K6_TPU = "raft_optical_flow_tpu/kernels/corr_ondemand_pallas.py:266"  # _bwd_df2_kernel
+K7_SRC = "raft_optical_flow_tpu_torch/kernels/csrc/gru_fused.cu"
+K7_TPU = "raft_optical_flow_tpu/kernels/gru_fused.py:80"  # _gru_pass_kernel
+K8_TPU = "raft_optical_flow_tpu/kernels/corr_lookup.py:431"  # _fused_lookup_kernel
 VJP_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # utils/grad_parity.py's gates
 
 
@@ -173,9 +194,22 @@ def phase_kernels(state):
     from raft_optical_flow_tpu_torch.kernels import corr_lookup as ck
     from raft_optical_flow_tpu_torch.ops.corr import corr_pyramid_lookup
 
-    err = {"corr_lookup_level": 0.0, "corr_lookup_coarse_fused": 0.0, "corr_lookup_level_bwd": 0.0}
+    err = {"corr_lookup_level": 0.0, "corr_lookup_coarse_fused": 0.0, "corr_lookup_level_bwd": 0.0,
+           "corr_lookup_all_levels": 0.0}
     k3_rel = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n_checks = 0
+
+    def check_k8(pyramid, coords, radius, tag):
+        """K8 (every level, fp32 out) bit for bit with its plain version."""
+        nonlocal n_checks
+        out = ck.corr_pyramid_lookup_cuda_fused(pyramid, coords, radius)
+        ref = ck.corr_pyramid_lookup_fused_plain(pyramid, coords, radius)
+        if out.dtype != torch.float32 or not torch.equal(out, ref):
+            raise AssertionError(f"K8 {tag} r{radius}: differs from its plain version")
+        err["corr_lookup_all_levels"] = max(err["corr_lookup_all_levels"],
+                                            float((out - ref).abs().max()))
+        n_checks += 1
+        return out
 
     def compare(pyramid, coords, radius, tag, far_rows=0):
         nonlocal n_checks
@@ -201,6 +235,7 @@ def phase_kernels(state):
             err["corr_lookup_coarse_fused"] = max(err["corr_lookup_coarse_fused"],
                                                   float((out.float() - ref.float()).abs().max()))
             n_checks += 1
+        check_k8(pyramid, coords, radius, tag)
         # K3 at every level, cotangents in both dtypes, dcorr in the volume's
         vol_dtype = pyramid[0].dtype
         gen = torch.Generator(device="cuda").manual_seed(31 + radius)
@@ -263,6 +298,8 @@ def phase_kernels(state):
         assert pyr[-1].shape[2] == 0
         coords = serving_coords(2, 7, 16, seed=10)
         compare(pyr, coords, 3, f"empty-level {vol_dtype}")
+        if bool(check_k8(pyr, coords, 4, f"empty-level {vol_dtype}")[..., 3 * 81:].ne(0).any()):
+            raise AssertionError("K8: empty level not zero")
         out = ck.corr_lookup_coarse_fused(pyr[1:], coords.reshape(2, 112, 2).contiguous(), 3)
         if bool(out[..., 2 * 49:].ne(0).any()):
             raise AssertionError("K2: empty level not zero")
@@ -277,8 +314,26 @@ def phase_kernels(state):
         f"corr_lookup_coarse_fused max_abs_err={err['corr_lookup_coarse_fused']!r} "
         f"corr_lookup_level_bwd max_abs_err={err['corr_lookup_level_bwd']!r} "
         f"max_rel fp32={k3_rel[torch.float32]!r} bf16={k3_rel[torch.bfloat16]!r} "
+        f"corr_lookup_all_levels max_abs_err={err['corr_lookup_all_levels']!r} "
         f"checks={n_checks} (tolerance: K1/K2 fp32 |d| <= 1e-5*max|corr|, bf16 |d| <= "
-        f"8e-3*|ref|; K3 max_rel <= 2e-5 fp32 volume, 3e-2 bf16) launches={dict(ck.LAUNCHES)}")
+        f"8e-3*|ref|; K3 max_rel <= 2e-5 fp32 volume, 3e-2 bf16; K8 bit for bit) "
+        f"launches={dict(ck.LAUNCHES)}")
+    # K8's path is its public entry (no model path launches it, in the JAX
+    # package as here): one call at the batch-16 bf16 serving shape, counted
+    # from 0
+    pyr = serving_pyramid(16, h, w, torch.bfloat16, seed=11)
+    coords = serving_coords(16, h, w, seed=12)
+    reset_all()
+    out = ck.corr_pyramid_lookup_cuda_fused(pyr, coords, 4)
+    torch.cuda.synchronize()
+    state["k8_launches"] = launch_counts()
+    expect_launches(state["k8_launches"], {"corr_lookup_all_levels": 1}, "K8's public entry")
+    if tuple(out.shape) != (16, h, w, 4 * 81) or not torch.isfinite(out).all():
+        raise AssertionError("K8 output has the wrong shape or is not finite")
+    log(f"K8 path: corr_pyramid_lookup_cuda_fused batch 16 {h}x{w} bf16 volume r=4 -> "
+        f"{tuple(out.shape)} {out.dtype}, launches {state['k8_launches']}")
+    del pyr, out
+    torch.cuda.empty_cache()
     log("phase kernels: ok")
 
 
@@ -298,7 +353,7 @@ def phase_small(state):
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
     if launches != {"corr_lookup_level": iters, "corr_lookup_coarse_fused": iters,
-                    "corr_lookup_level_bwd": 0}:
+                    "corr_lookup_level_bwd": 0, "corr_lookup_all_levels": 0}:
         raise AssertionError(f"RAFT-small launches {launches}, expected {iters} of K1 and K2")
     low_err = np.abs(flow_low.cpu().numpy() - g["flow_low"]).max()
     epe = np.linalg.norm(flow_up.cpu().numpy() - g["flow_up"], axis=-1)
@@ -339,7 +394,7 @@ def phase_standard(state):
         torch.cuda.synchronize()
         launches = dict(ck.LAUNCHES)  # the main path's run
         if launches != {"corr_lookup_level": ITERS, "corr_lookup_coarse_fused": ITERS,
-                        "corr_lookup_level_bwd": 0}:
+                        "corr_lookup_level_bwd": 0, "corr_lookup_all_levels": 0}:
             raise AssertionError(f"RAFT-standard launches {launches}, expected {ITERS} of K1, K2")
         flow = padder.unpad(flow_up)
         if tuple(flow.shape) != (B, *SERVE_HW, 2) or not torch.isfinite(flow).all():
@@ -414,16 +469,19 @@ def launch_counts():
     """Launches of every kernel of the port since the last reset_all()."""
     from raft_optical_flow_tpu_torch.kernels import corr_lookup as ck
     from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
+    from raft_optical_flow_tpu_torch.kernels import gru_fused as gf
 
-    return {**ck.LAUNCHES, **co.LAUNCHES}
+    return {**ck.LAUNCHES, **co.LAUNCHES, **gf.LAUNCHES}
 
 
 def reset_all():
     from raft_optical_flow_tpu_torch.kernels import corr_lookup as ck
     from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
+    from raft_optical_flow_tpu_torch.kernels import gru_fused as gf
 
     ck.reset_launches()
     co.reset_launches()
+    gf.reset_launches()
 
 
 def expect_launches(got, expect, what):
@@ -450,13 +508,16 @@ def layer_max_rel(grads, ref_grads):
     each layer on its own scale, so fnet, the only part the lookup's
     gradient reaches, is not measured against the update block's larger
     gradient. A conv bias in front of an instance norm has a zero gradient
-    up to rounding; its layer's weight gradient gives it its scale."""
+    up to rounding; its layer's weight gradient gives it its scale. A layer
+    whose gradient is zero (one the step does not reach) reads 0.0 when the
+    other's is zero too, else inf."""
     diff, ref = {}, {}
     for k, v in ref_grads.items():
         layer = k.rsplit(".", 1)[0]
         diff[layer] = max(diff.get(layer, 0.0), float((grads[k] - v).abs().max()))
         ref[layer] = max(ref.get(layer, 0.0), float(v.abs().max()))
-    return {n: diff[n] / ref[n] for n in ref}
+    return {n: diff[n] / ref[n] if ref[n] else (0.0 if diff[n] == 0 else math.inf)
+            for n in ref}
 
 
 def phase_train(state):
@@ -485,7 +546,7 @@ def phase_train(state):
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
     if launches != {"corr_lookup_level": 4 * iters, "corr_lookup_coarse_fused": 0,
-                    "corr_lookup_level_bwd": 0}:
+                    "corr_lookup_level_bwd": 0, "corr_lookup_all_levels": 0}:
         raise AssertionError(f"train-mode forward launches {launches}")
     epe = np.linalg.norm(preds[-1].cpu().numpy() - gold["train_pred_last"], axis=-1)
     # one step through the kernels, one through the plain lookup, from the
@@ -898,6 +959,268 @@ def phase_ondemand(state):
     log("phase ondemand: ok")
 
 
+# ---------------------------------------------------------------------------
+# fused SepConvGRU (fused_gru)
+
+
+def gru_inputs(B, H, W, dtype, seed, X=256, D=128):
+    """h (tanh of normals) and x (relu of normals) NHWC on the card, and the
+    six gates' (weight OIHW, bias) at PyTorch's default conv init bound."""
+    from raft_optical_flow_tpu_torch.kernels.gru_fused import GATES
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.tanh(torch.randn(B, H, W, D, device="cuda", generator=g)).to(dtype)
+    x = torch.relu(torch.randn(B, H, W, X, device="cuda", generator=g)).to(dtype)
+    bound = (5 * (D + X)) ** -0.5
+    weights = []
+    for name in GATES:
+        ks = (1, 5) if name.endswith("1") else (5, 1)
+        weights.append((torch.rand(D, D + X, *ks, device="cuda", generator=g) * 2 - 1) * bound)
+        weights.append((torch.rand(D, device="cuda", generator=g) * 2 - 1) * bound)
+    return h, x, weights
+
+
+def check_k7(name, got, ref, w):
+    """K7 against its plain version on one pass's inputs. fp32: max_rel <=
+    1e-5. bf16: within one bf16 rounding step of the plain value, plus what one
+    flipped rounding of r*h carries through the q gate (a bf16 step of |rh| <
+    1, 2^-8, times the largest q weight), plus 2e-5 * max|ref| for the sums'
+    order (K4's term). Returns (max|d|, max_rel, elements past one step, the
+    largest distance past it)."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        raise AssertionError(f"K7 {name}: {got.dtype} {tuple(got.shape)}")
+    g32, r32 = got.float(), ref.float()
+    d = (g32 - r32).abs()
+    scale = float(r32.abs().max())
+    rel = float(d.max()) / scale
+    if got.dtype == torch.float32:
+        ok = rel <= 1e-5
+        past, excess = 0, 0.0
+    else:
+        slack = 2.0**-8 * float(w[:, :, 2 * w.shape[2] // 3:].float().abs().max()) + 2e-5 * scale
+        step = bf16_step(r32)
+        ok = bool((d <= step + slack).all())
+        past, excess = int((d > step).sum()), max(float((d - step).max()), 0.0)
+    if not ok or not torch.isfinite(g32).all():
+        raise AssertionError(f"K7 {name}: max|d| {float(d.max()):.3e} max_rel {rel:.3e}")
+    return float(d.max()), rel, past, excess
+
+
+def _k7_kernel_checks(state):
+    from raft_optical_flow_tpu_torch.kernels import gru_fused as gf
+
+    err, lines = 0.0, []
+    # serving (RAFT-standard bf16 at 1024x440, batch 16), training (fp32
+    # chairs-size crop, batch 4), a width of one ragged strip (37 < 44), and
+    # the 1-high and 1-wide levels where each tap but the centre is padding in
+    # one of the passes; each pass held on the plain version's own input
+    for B, H, W, dt in ((16, 55, 128, torch.bfloat16), (4, 46, 62, torch.float32),
+                        (1, 8, 37, torch.float32), (1, 8, 37, torch.bfloat16),
+                        (2, 1, 37, torch.bfloat16), (2, 37, 1, torch.float32)):
+        h, x, weights = gru_inputs(B, H, W, dt, seed=B * 1000 + H * W)
+        for axis, part in ((2, weights[:6]), (1, weights[6:])):
+            w, b = gf.pass_weights(part, dt)
+            got = gf.gru_pass(h, x, w, b, axis)
+            ref = gf.gru_pass_plain(h, x, w, b, axis)
+            d, rel, past, excess = check_k7(f"B={B} {H}x{W} {dt} axis={axis}", got, ref, w)
+            err = max(err, d)
+            lines.append(f"{B}x{H}x{W} {str(dt)[6:]} {'1x5' if axis == 2 else '5x1'}: max|d| "
+                         f"{d:.3e} max_rel {rel:.3e} past one step {past}/{got.numel()} "
+                         f"by at most {excess:.3e}")
+            h = ref
+        del h, x, got, ref
+    torch.cuda.synchronize()
+    state["fused_max_abs_err"] = err
+    log("fused_gru K7 vs plain (gates: fp32 max_rel 1e-5; bf16 one rounding step + 2^-8 * "
+        "max|W_q| + 2e-5 * max|ref|): " + "; ".join(lines))
+
+
+def _fused_serving(state):
+    from raft_optical_flow_tpu_torch.models import RAFT, RAFTConfig
+
+    results = {}
+    for dt, batches in ((torch.bfloat16, (16, 1)), (torch.float32, (1,))):
+        unfused = RAFT(RAFTConfig(compute_dtype=dt), device="cuda",
+                       generator=torch.Generator().manual_seed(0))
+        fused = RAFT(RAFTConfig(compute_dtype=dt, fused_gru=True), device="cuda")
+        fused.load_state_dict(unfused.state_dict())
+        for B in batches:
+            padder, img1, img2 = _serving_inputs(B, seed=100 + B)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _, flow_ref = unfused(img1, img2, iters=ITERS)
+            torch.cuda.synchronize()
+            peak_ref = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_all()
+            _, flow = fused(img1, img2, iters=ITERS)
+            torch.cuda.synchronize()
+            launches = launch_counts()  # the main path's run
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            expect_launches(launches, {"sepconv_gru_pass": 2 * ITERS, "corr_lookup_level": ITERS,
+                                       "corr_lookup_coarse_fused": ITERS}, f"fused serving B={B}")
+            out = padder.unpad(flow)
+            if tuple(out.shape) != (B, *SERVE_HW, 2) or not torch.isfinite(out).all():
+                raise AssertionError("fused RAFT-standard output: wrong shape or not finite")
+            epe = torch.linalg.norm(flow - flow_ref, dim=-1)
+            times = {"fused": [], "unfused": []}
+            for _ in range(2):  # in turns: fused, unfused
+                for name, m in (("fused", fused), ("unfused", unfused)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    m(img1, img2, iters=ITERS)
+                    torch.cuda.synchronize()
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+            ms, ms_ref = min(times["fused"]), min(times["unfused"])
+            key = f"{str(dt)[6:]}_bs{B}"
+            results[key] = {"ms": ms, "ms_readings": times["fused"], "pairs_per_s": B * 1e3 / ms,
+                            "unfused_ms": ms_ref, "unfused_ms_readings": times["unfused"],
+                            "unfused_pairs_per_s": B * 1e3 / ms_ref, "peak_gib": peak,
+                            "unfused_peak_gib": peak_ref, "launches": launches,
+                            "epe_mean": float(epe.mean()), "epe_max": float(epe.max())}
+            gate = "mean < 0.02" if dt == torch.bfloat16 else "mean < 1e-3, max < 5e-3"
+            log(f"fused_gru standard {str(dt)[6:]} batch={B}: {ms:.3f} ms/call "
+                f"{B * 1e3 / ms:.3f} pairs/s (readings {[round(t, 3) for t in times['fused']]}); "
+                f"unfused {ms_ref:.3f} ms/call {B * 1e3 / ms_ref:.3f} pairs/s (readings "
+                f"{[round(t, 3) for t in times['unfused']]}); vs unfused EPE "
+                f"mean={float(epe.mean())!r} max={float(epe.max())!r} (gate {gate}); "
+                f"peak_mem {peak:.2f} GiB (unfused {peak_ref:.2f}) launches={launches}")
+            ok = (float(epe.mean()) < 0.02 if dt == torch.bfloat16
+                  else float(epe.mean()) < 1e-3 and float(epe.max()) < 5e-3)
+            if not ok:
+                raise AssertionError(f"fused and unfused {dt} serving disagree")
+            del img1, img2, flow, flow_ref, out
+        del fused, unfused
+        torch.cuda.empty_cache()
+    state["fused_serving"] = results
+
+
+def _fused_train(state):
+    """The fp32 fused training step against the unfused one (same weights and
+    batch, PyTorch's deterministic algorithms on) at GATE_ITERS, 3 and
+    TRAIN_ITERS iterations. Beside each, the step's own floor: per layer, the
+    larger reading of the unfused step with its GRU weights x (1 + 1e-7) and
+    x (1 - 1e-7) (one fp32 rounding step, less than the ~1e-6 by which K7's
+    and cuDNN's sums differ) against the unfused step. The step is not
+    smooth at that scale: ReLU inputs within 1e-7 of zero flip, and fnet's
+    first layers' weight gradients are sums with heavy cancellation, so
+    some layers move by far more than VJP_TOL whatever computed the forward
+    (tools/port_grad_sensitivity.py). At GATE_ITERS the loss is gated at rel
+    1e-5 and each layer at max(VJP_TOL, 2 x its floor), twice the floor for
+    the spread between two draws of the same noise; deeper readings are
+    reported. The fused step run twice with cudnn.deterministic only is
+    gated at 0.0."""
+    from raft_optical_flow_tpu_torch.models import RAFTConfig
+    from raft_optical_flow_tpu_torch.train.configs import StageConfig
+    from raft_optical_flow_tpu_torch.train.trainer import create_train_state, raft_train_step
+
+    stage = StageConfig(name="smoke-fused", stage="things", num_steps=100, batch_size=2,
+                        lr=1.25e-4, image_size=TRAIN_HW)
+    batch = _train_batch(2, seed=47)
+
+    def step(fused, iters, scale_gru=1.0):
+        st = create_train_state(RAFTConfig(fused_gru=fused), stage, device="cuda")
+        if scale_gru != 1.0:
+            with torch.no_grad():
+                for p in st.model.update_block.gru.parameters():
+                    p.mul_(scale_gru)
+        expect = {"corr_lookup_level": 4 * iters, "corr_lookup_level_bwd": 4 * iters}
+        if fused:
+            expect["sepconv_gru_pass"] = 2 * iters
+        reset_all()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = raft_train_step(st, batch, iters=iters, freeze_bn=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        expect_launches(launch_counts(), expect, f"train step fused_gru={fused} iters={iters}")
+        return float(m["loss"]), {k: p.grad for k, p in st.model.named_parameters()}, ms
+
+    readings, ms = {}, {}
+    with deterministic(algorithms=True):
+        for iters in (GATE_ITERS, 3, TRAIN_ITERS):
+            loss_f, grads_f, ms_f = step(True, iters)
+            loss_u, grads_u, ms_u = step(False, iters)
+            floors = [layer_max_rel(step(False, iters, scale_gru=1 + e)[1], grads_u)
+                      for e in (1e-7, -1e-7)]
+            readings[iters] = {"loss_rel": abs(loss_f - loss_u) / abs(loss_u),
+                               "vs_unfused": layer_max_rel(grads_f, grads_u),
+                               "floor": {n: max(f[n] for f in floors) for n in floors[0]}}
+            ms[iters] = (ms_f, ms_u)
+            del grads_f, grads_u, floors
+    # the fused step run twice with cudnn.deterministic only
+    with deterministic(algorithms=False):
+        runs = [step(True, TRAIN_ITERS)[1] for _ in range(2)]
+    noise = layer_max_rel(runs[1], runs[0])
+    del runs
+    # the bf16 policy has no fused training semantics: it must refuse
+    try:
+        st = create_train_state(RAFTConfig(fused_gru=True, compute_dtype=torch.bfloat16), stage,
+                                device="cuda")
+        raft_train_step(st, batch, iters=TRAIN_ITERS, freeze_bn=True)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    state["fused_train"] = {"readings": readings, "ms": ms}
+
+    def worst(rel):
+        name = max(rel, key=rel.get)
+        return f"{name} {rel[name]!r}"
+
+    for iters, r in readings.items():
+        gate = (" (gates: loss rel 1e-5, per layer max(2e-5, 2 x floor))" if iters == GATE_ITERS
+                else " (reported)")
+        log(f"fused_gru train fp32 batch=2 {TRAIN_HW[0]}x{TRAIN_HW[1]} iters={iters} "
+            f"(deterministic algorithms on){gate}: fused vs unfused loss rel {r['loss_rel']!r}, "
+            f"gradient max_rel worst layer {worst(r['vs_unfused'])}; floor (unfused, GRU "
+            f"weights x (1 +- 1e-7)) worst {worst(r['floor'])}; step ms fused "
+            f"{ms[iters][0]:.3f} unfused {ms[iters][1]:.3f} (first steps, not timings)")
+        for name in ("vs_unfused", "floor"):
+            log(f"  gradient max_rel by layer, {name}: "
+                + " ".join(f"{n}={v:.3e}" for n, v in r[name].items()))
+    log(f"fused_gru train fp32 iters={TRAIN_ITERS}: fused step vs itself, cudnn.deterministic "
+        f"only: worst {worst(noise)} (gate 0.0); bf16 fused step refused: {refused is not None}")
+    gated = readings[GATE_ITERS]
+    if not gated["loss_rel"] <= 1e-5:
+        raise AssertionError("fused and unfused training losses disagree")
+    bad = {n: (v, gated["floor"][n]) for n, v in gated["vs_unfused"].items()
+           if not v <= max(VJP_TOL[torch.float32], 2 * gated["floor"][n])}
+    if bad:
+        raise AssertionError(f"fused and unfused training gradients disagree "
+                             f"(layer: reading, floor): {bad}")
+    if any(v != 0.0 for v in noise.values()):
+        raise AssertionError("the same fused step run twice gives other gradients")
+    if refused is None or "ROADMAP.md Queue 3" not in refused:
+        raise AssertionError("bf16 fused training was not refused with a ValueError")
+    torch.cuda.empty_cache()
+
+
+def _fused_ondemand(state):
+    from raft_optical_flow_tpu_torch.models import RAFT, RAFTConfig
+
+    model = RAFT(RAFTConfig(compute_dtype=torch.bfloat16, alternate_corr=True, fused_gru=True),
+                 device="cuda", generator=torch.Generator().manual_seed(0))
+    padder, img1, img2 = _serving_inputs(1, seed=1)
+    reset_all()
+    _, flow = model(img1, img2, iters=ITERS)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    expect_launches(launches, {"corr_ondemand_fwd": ITERS, "sepconv_gru_pass": 2 * ITERS},
+                    "alternate_corr with fused_gru")
+    if not torch.isfinite(flow).all():
+        raise AssertionError("alternate_corr with fused_gru: output not finite")
+    log(f"fused_gru with alternate_corr bf16 batch=1: launches={launches}")
+
+
+def phase_fused_gru(state):
+    _k7_kernel_checks(state)
+    _fused_serving(state)
+    _fused_train(state)
+    _fused_ondemand(state)
+    log("phase fused_gru: ok")
+
+
 def _bytes_needed(levels, coords_flat, radius, out_itemsize):
     """Bytes the lookup must move for these inputs: each query's in-bounds
     (K+1)^2 patch of each level, its coords, and its K^2 outputs per level."""
@@ -935,6 +1258,7 @@ def _grid_sample_fn(c, coords_flat, lvl, radius):
 def phase_timing(state):
     from raft_optical_flow_tpu_torch.kernels import corr_lookup as ck
     from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
+    from raft_optical_flow_tpu_torch.kernels import gru_fused as gf
 
     B, radius, dt = 16, 4, torch.bfloat16
     h, w = (SERVE_HW[0] + 4) // 8, SERVE_HW[1] // 8
@@ -943,6 +1267,7 @@ def phase_timing(state):
     flat = coords.reshape(B, h * w, 2).contiguous()
     saved = dict(ck.LAUNCHES)
     saved_ondemand = dict(co.LAUNCHES)
+    saved_gru = dict(gf.LAUNCHES)
     rows = {}
 
     k1 = lambda: ck.corr_lookup_level(pyr[0], flat, radius, dt)
@@ -987,11 +1312,28 @@ def phase_timing(state):
         log(f"timing {name}: B={B} r={radius} bf16 kernel {k_a:.4f}/{k_b:.4f} ms, plain "
             f"{p1:.4f}/{p2:.4f} ms, grid_sample {lib:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}, {nbytes / 1e6:.2f} MB)")
+    # K8: every level in one launch, fp32 out; yardstick the four grid_samples
+    k8 = lambda: ck.corr_pyramid_lookup_cuda_fused(pyr, coords, radius)
+    k8_plain = lambda: ck.corr_pyramid_lookup_fused_plain(pyr, coords, radius)
+    if not torch.equal(k8(), k8_plain()):
+        raise AssertionError("K8 differs from its plain version on the timed inputs")
+
+    def gs_all():
+        gs0()
+        gs2()
+
+    K = 2 * radius + 1
+    rows["corr_lookup_all_levels"] = _timing_row(
+        "corr_lookup_all_levels", k8, k8_plain, gs_all,
+        _bytes_needed(list(enumerate(pyr)), flat, radius, 4), B * h * w * K * K * len(pyr) * 17,
+        torch.float32, f"B={B} r={radius} bf16 volume, fp32 windows, levels 55x128..6x16;")
     del pyr
     rows["corr_lookup_level_bwd"] = _time_k3(radius, dt)
     _time_ondemand(rows)
+    rows["sepconv_gru_pass"] = _time_k7()
     ck.LAUNCHES.update(saved)  # timing launches are not the main path's
     co.LAUNCHES.update(saved_ondemand)
+    gf.LAUNCHES.update(saved_gru)
     state["timing"] = rows
     log("phase timing: ok")
 
@@ -1125,6 +1467,56 @@ def _time_ondemand(rows):
     del out
 
 
+def _time_k7():
+    """K7 at the batch-16 bf16 serving shape (55x128, D = 128, X = 256): one
+    GRU step's two launches (1x5, then 5x1), each first held against the plain
+    version on its inputs. The row is per launch: the step's times over 2,
+    against the unfused SepConvGRU (six cuDNN convs and their elementwise
+    work) on the same NCHW inputs, also over 2. The model's per-step weight
+    preparation (`pass_weights`) is outside the timed call."""
+    from raft_optical_flow_tpu_torch.kernels import gru_fused as gf
+    from raft_optical_flow_tpu_torch.models.update import SepConvGRU
+
+    dt, B, H, W, D, X = torch.bfloat16, 16, 55, 128, 128, 256
+    h, x, weights = gru_inputs(B, H, W, dt, seed=31)
+    w1, b1 = gf.pass_weights(weights[:6], dt)
+    w2, b2 = gf.pass_weights(weights[6:], dt)
+    h1 = gf.gru_pass(h, x, w1, b1, 2)
+    check_k7("timed inputs 1x5", h1, gf.gru_pass_plain(h, x, w1, b1, 2), w1)
+    check_k7("timed inputs 5x1", gf.gru_pass(h1, x, w2, b2, 1), gf.gru_pass_plain(h1, x, w2, b2, 1),
+             w2)
+    module = SepConvGRU(D, X).cuda()
+    with torch.no_grad():
+        for i, name in enumerate(gf.GATES):
+            getattr(module, name).weight.copy_(weights[2 * i])
+            getattr(module, name).bias.copy_(weights[2 * i + 1])
+    hc, xc = h.permute(0, 3, 1, 2).contiguous(), x.permute(0, 3, 1, 2).contiguous()
+    one_h = cuda_ms(lambda: gf.gru_pass(h, x, w1, b1, 2), 20)
+    one_v = cuda_ms(lambda: gf.gru_pass(h1, x, w2, b2, 1), 20)
+    with torch.no_grad():
+        lib_h = cuda_ms(lambda: module._pass(hc, xc, "1"), 10)
+        lib_v = cuda_ms(lambda: module._pass(hc, xc, "2"), 10)
+        npix = B * H * W
+        row = _timing_row(
+            "sepconv_gru_pass (whole GRU step: two launches)",
+            lambda: gf.gru_pass(gf.gru_pass(h, x, w1, b1, 2), x, w2, b2, 1),
+            lambda: gf.gru_pass_plain(gf.gru_pass_plain(h, x, w1, b1, 2), x, w2, b2, 1),
+            lambda: module(hc, xc),
+            2 * (npix * (2 * D + X) * 2 + w1.numel() * 2 + b1.numel() * 4),
+            2 * (2 * npix * 3 * 5 * (D + X) * D), dt,
+            f"B={B} {H}x{W} D={D} X={X} bf16, library = unfused SepConvGRU;")
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "fp32_core_floor_ms", "bytes", "ops"):
+        row[k] /= 2
+    for k in ("ms_readings", "plain_readings"):
+        row[k] = [t / 2 for t in row[k]]
+    row.update(per="launch: one GRU step over 2", pass_1x5_ms=one_h, pass_5x1_ms=one_v,
+               library_1x5_ms=lib_h, library_5x1_ms=lib_v)
+    log(f"timing sepconv_gru_pass per launch: {row['ms']:.4f} ms (1x5 {one_h:.4f}, 5x1 "
+        f"{one_v:.4f}), plain {row['plain_ms']:.4f}, unfused {row['library_ms']:.4f} (1x5 "
+        f"{lib_h:.4f}, 5x1 {lib_v:.4f}), bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
 def _time_k3(radius, dt):
     """K3 at the bf16 training shape of phase train: batch 4, 368x496 -> Q =
     46*62, level 0 (46x62); the all-levels sum is logged beside it."""
@@ -1234,12 +1626,19 @@ def main() -> int:
     launches["corr_ondemand_fwd"] = state["ondemand_serving"][16]["launches"]["corr_ondemand_fwd"]
     for name in ("corr_ondemand_bwd_df1", "corr_ondemand_bwd_df2"):
         launches[name] = state["ondemand_train"]["bf16_bs4"]["launches"][name]
-    max_abs_err = {**state["max_abs_err"], **state["ondemand_max_abs_err"]}
+    # K7 per fused batch-16 serving forward; K8 over its public entry's call
+    # (phase kernels): no model path launches it
+    launches["sepconv_gru_pass"] = state["fused_serving"]["bfloat16_bs16"]["launches"][
+        "sepconv_gru_pass"]
+    launches["corr_lookup_all_levels"] = state["k8_launches"]["corr_lookup_all_levels"]
+    max_abs_err = {**state["max_abs_err"], **state["ondemand_max_abs_err"],
+                   "sepconv_gru_pass": state["fused_max_abs_err"]}
     kernels = []
     for name, source, replaces in (
         ("corr_lookup_level", K1_SRC, K1_TPU), ("corr_lookup_coarse_fused", K1_SRC, K2_TPU),
         ("corr_lookup_level_bwd", K1_SRC, K3_TPU), ("corr_ondemand_fwd", K4_SRC, K4_TPU),
         ("corr_ondemand_bwd_df1", K4_SRC, K5_TPU), ("corr_ondemand_bwd_df2", K4_SRC, K6_TPU),
+        ("sepconv_gru_pass", K7_SRC, K7_TPU), ("corr_lookup_all_levels", K1_SRC, K8_TPU),
     ):
         t = state["timing"][name]
         if launches[name] <= 0:
@@ -1250,6 +1649,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
+    kernels[-1]["note"] = ("no model path launches it (as in the JAX package); launches "
+                           "counted over one call of its public entry")
     log(state["smi"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,12 +8,17 @@ kernels (`csrc/corr_lookup.cu`, built by `_build.py`, bound through ctypes):
     `_coarse_fused_kernel`); empty levels come out as zeros; forward only;
   - K3 `corr_lookup_level_bwd`: K1's gradient wrt the volume (replaces
     `_lookup_level_bwd_kernel`), the backward of the autograd Function
-    `LookupLevel`, whose forward is K1.
+    `LookupLevel`, whose forward is K1;
+  - K8 `corr_lookup_all_levels`: every level in one launch, fp32 output
+    (replaces `_fused_lookup_kernel`, through `corr_pyramid_lookup_cuda_fused`,
+    the counterpart of `corr_pyramid_lookup_pallas_fused`); K2's device code
+    from level 0. No model path calls it, in the JAX package as here.
 
 `corr_pyramid_lookup_cuda` has the signature of the JAX package's
 `corr_pyramid_lookup_pallas`. For a CUDA tensor each wrapper launches its
 kernel or raises; for a CPU tensor it runs the plain version (K1, K2:
-`ops/corr.py::sample_corr_window`; K3: `corr_lookup_level_bwd_plain`), which
+`ops/corr.py::sample_corr_window`; K3: `corr_lookup_level_bwd_plain`; K8:
+`corr_pyramid_lookup_fused_plain`), which
 is also the kernel's oracle. Each wrapper counts its launches in `LAUNCHES`.
 """
 
@@ -30,6 +35,7 @@ from raft_optical_flow_tpu_torch.ops.corr import sample_corr_window
 # launches of each kernel since the last reset_launches(); plain runs do not count
 LAUNCHES: Dict[str, int] = {
     "corr_lookup_level": 0, "corr_lookup_coarse_fused": 0, "corr_lookup_level_bwd": 0,
+    "corr_lookup_all_levels": 0,
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -53,6 +59,8 @@ def _kernels() -> ctypes.CDLL:
         lib.raft_corr_lookup_coarse_fused.restype = I
         lib.raft_corr_lookup_level_bwd.argtypes = [P, P, P, I, I, I, I, I, I, I, P]
         lib.raft_corr_lookup_level_bwd.restype = I
+        lib.raft_corr_lookup_all_levels.argtypes = [P, P, P, I, P, P, I, I, I, I, P]
+        lib.raft_corr_lookup_all_levels.restype = I
         _lib = lib
     return _lib
 
@@ -89,14 +97,28 @@ def corr_lookup_level_plain(corr_l, coords_l, radius, out_dtype=torch.float32):
     return sample_corr_window(corr_l, coords_l[..., 0], coords_l[..., 1], radius).to(out_dtype)
 
 
-def corr_lookup_coarse_fused_plain(levels, coords, radius, out_dtype=torch.float32):
-    """Plain version of K2: levels 1..L-1, level-0 [B, Q, 2] -> [B, Q, (L-1)*K^2]."""
+def _levels_plain(levels, coords, radius, start):
+    """sample_corr_window at pyramid levels start, start+1, ... with level-0
+    coords [B, Q, 2] scaled by 1/2^l, concatenated: [B, Q, len(levels)*K^2]."""
     outs = [
         sample_corr_window(c, coords[..., 0] * (1.0 / 2**lvl),
                            coords[..., 1] * (1.0 / 2**lvl), radius)
-        for lvl, c in enumerate(levels, start=1)
+        for lvl, c in enumerate(levels, start=start)
     ]
-    return torch.cat(outs, dim=-1).to(out_dtype)
+    return torch.cat(outs, dim=-1)
+
+
+def corr_lookup_coarse_fused_plain(levels, coords, radius, out_dtype=torch.float32):
+    """Plain version of K2: levels 1..L-1, level-0 [B, Q, 2] -> [B, Q, (L-1)*K^2]."""
+    return _levels_plain(levels, coords, radius, start=1).to(out_dtype)
+
+
+def corr_pyramid_lookup_fused_plain(pyramid, coords, radius):
+    """Plain version of K8: every level, level-0 coords [B, h, w, 2] ->
+    fp32 [B, h, w, L*K^2] (`ops/corr.py::corr_pyramid_lookup`, then `.float()`)."""
+    B, h, w, _ = coords.shape
+    flat = coords.reshape(B, h * w, 2).float()
+    return _levels_plain(pyramid, flat, radius, start=0).float().reshape(B, h, w, -1)
 
 
 def corr_lookup_level(corr_l: torch.Tensor, coords_l: torch.Tensor, radius: int,
@@ -288,3 +310,46 @@ def corr_pyramid_lookup_cuda(
         for lvl, c in enumerate(pyramid[1:], start=1):
             outs.append(LookupLevel.apply(c, flat * (1.0 / 2**lvl), radius, out_dtype))
     return torch.cat(outs, dim=-1).reshape(B, h, w, -1)
+
+
+def corr_pyramid_lookup_cuda_fused(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
+                                   radius: int) -> torch.Tensor:
+    """K8: window lookup at every pyramid level in one launch, forward only.
+
+    Counterpart of the JAX package's `corr_pyramid_lookup_pallas_fused`.
+    pyramid: [B, Q, Hl, Wl] per level, level 0 first (one dtype, fp32 or bf16,
+    contiguous; empty levels allowed); coords: [B, h, w, 2] level-0 (x, y),
+    Q = h*w. Returns fp32 [B, h, w, L*(2r+1)^2] whatever the volume dtype,
+    levels in order, zeros for empty levels.
+    """
+    if coords.dim() != 4 or coords.shape[3] != 2:
+        raise ValueError(f"coords must be [B, h, w, 2], got {tuple(coords.shape)}")
+    B, h, w, _ = coords.shape
+    flat = coords.reshape(B, h * w, 2).float().contiguous()
+    _check_coords(flat, torch.float32, radius)
+    if not 1 <= len(pyramid) <= MAX_COARSE_LEVELS:
+        raise ValueError(f"1..{MAX_COARSE_LEVELS} levels, got {len(pyramid)}")
+    for c in pyramid:
+        _check_volume(c, B, h * w, coords.device)
+    if len({c.dtype for c in pyramid}) != 1:
+        raise TypeError("pyramid levels must share one dtype")
+    if not coords.is_cuda:
+        return corr_pyramid_lookup_fused_plain(pyramid, coords, radius)
+    n = len(pyramid)
+    K = 2 * radius + 1
+    out = torch.empty(B, h * w, n * K * K, dtype=torch.float32, device=coords.device)
+    if B * h * w == 0:
+        return out.reshape(B, h, w, -1)
+    ptrs = (ctypes.c_void_p * n)(*[c.data_ptr() for c in pyramid])
+    hs = (ctypes.c_int * n)(*[c.shape[2] for c in pyramid])
+    ws = (ctypes.c_int * n)(*[c.shape[3] for c in pyramid])
+    lib = _kernels()
+    with torch.cuda.device(coords.device):
+        err = lib.raft_corr_lookup_all_levels(
+            ctypes.addressof(ptrs), ctypes.addressof(hs), ctypes.addressof(ws), n,
+            flat.data_ptr(), out.data_ptr(), B, h * w, radius,
+            _DTYPE_CODE[pyramid[0].dtype], torch.cuda.current_stream().cuda_stream,
+        )
+    _check(err, "corr_lookup_all_levels")
+    LAUNCHES["corr_lookup_all_levels"] += 1
+    return out.reshape(B, h, w, -1)

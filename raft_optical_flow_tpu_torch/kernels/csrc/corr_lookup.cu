@@ -8,6 +8,9 @@
 //                                      in one launch)
 //   raft_corr_lookup_level_bwd      <- _lookup_level_bwd_kernel (K3, K1's
 //                                      gradient wrt the volume; see below)
+//   raft_corr_lookup_all_levels     <- _fused_lookup_kernel (K8, levels
+//                                      0..L-1 in one launch, fp32 output: K2's
+//                                      device code started at level 0)
 //
 // What they compute: for each query q of batch b and level l, the (2r+1)^2
 // window of corr_l[b, q] (a contiguous [Hl, Wl] row) sampled bilinearly at
@@ -311,6 +314,25 @@ extern "C" int raft_corr_lookup_coarse_fused(
     default: launch_coarse<__nv_bfloat16, __nv_bfloat16>(lv, coords, out, bq, radius, blocks, s); break;
   }
   return (int)cudaGetLastError();
+}
+
+// K8: every level in one launch, levels 0..n_levels-1 in order, fp32 output
+// [B*Q, n_levels*K*K] whatever the volume dtype (the Pallas kernel's output
+// type); empty levels are written as zeros. No model path launches it: it is
+// the port of corr_pyramid_lookup_pallas_fused, whose Pallas body does not
+// trace (ROADMAP.md Queue 3), so it computes what that body was meant to: K1
+// at every level. Bound: bytes, as K2.
+extern "C" int raft_corr_lookup_all_levels(const void* const* level_ptrs,
+                                           const int* level_h, const int* level_w,
+                                           int n_levels, const void* coords, void* out,
+                                           int B, int Q, int radius, int corr_dtype,
+                                           void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
+  int level_index[kMaxLevels];
+  for (int i = 0; i < n_levels; ++i) level_index[i] = i;
+  return raft_corr_lookup_coarse_fused(level_ptrs, level_h, level_w, level_index,
+                                       n_levels, coords, out, B, Q, radius, corr_dtype,
+                                       /*out_dtype=*/0, stream);
 }
 
 // coords [B*Q, 2] fp32 level-scaled, g [B*Q, K*K] (g_dtype), dcorr [B*Q, H, W]

@@ -40,7 +40,12 @@ Policies (`RAFTConfig.compute_dtype`):
     with fp32 sums (the JAX package's Precision.DEFAULT); under fp32 they
     stay fp32, no TF32.
 
-`fused_gru` raises NotImplementedError (ROADMAP.md lists it as a later slice).
+`fused_gru` (RAFT-standard; RAFT-small ignores it, as the JAX package's
+`SmallUpdateBlock` does) runs the SepConvGRU through K7
+(`kernels/gru_fused.py`), composing with `alternate_corr` and `remat`. Its
+backward is autograd of the unfused reference, in fp32 only: training under
+the bf16 policy with `fused_gru` raises ValueError (the JAX package has no
+working semantics there, ROADMAP.md Queue 3).
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from raft_optical_flow_tpu_torch.kernels.corr_ondemand import (
     ondemand_corr_pyramid_cuda,
     ondemand_corr_pyramid_plain,
 )
+from raft_optical_flow_tpu_torch.kernels.gru_fused import BF16_TRAINING_REFUSED
 from raft_optical_flow_tpu_torch.models.extractor import BasicEncoder, SmallEncoder
 from raft_optical_flow_tpu_torch.models.layers import fp32_policy, init_weights
 from raft_optical_flow_tpu_torch.models.update import BasicUpdateBlock, SmallUpdateBlock
@@ -68,8 +74,6 @@ from raft_optical_flow_tpu_torch.ops.corr import (
 )
 from raft_optical_flow_tpu_torch.ops.grid import coords_grid, upflow8
 from raft_optical_flow_tpu_torch.ops.upsample import convex_upsample
-
-_NOT_PORTED = "not ported yet: see ROADMAP.md, Queue 1 and Queue 2"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,8 +122,6 @@ class RAFT(nn.Module):
     def __init__(self, config: RAFTConfig = RAFTConfig(), device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.fused_gru:
-            raise NotImplementedError(f"fused_gru is {_NOT_PORTED}")
         if config.corr_impl not in ("cuda", "plain"):
             raise ValueError(f"corr_impl must be 'cuda' or 'plain', got {config.corr_impl!r}")
         if config.compute_dtype not in (torch.float32, torch.bfloat16):
@@ -134,7 +136,7 @@ class RAFT(nn.Module):
         else:
             self.fnet = BasicEncoder(256, "instance", config.dropout)
             self.cnet = BasicEncoder(hdim + cdim, "batch", config.dropout)
-            self.update_block = BasicUpdateBlock(corr_ch, hdim, cdim)
+            self.update_block = BasicUpdateBlock(corr_ch, hdim, cdim, config.fused_gru)
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
         self.to(device)
         self.eval()
@@ -159,8 +161,11 @@ class RAFT(nn.Module):
                 flow_init: Optional[torch.Tensor] = None, test_mode: bool = True,
                 train: bool = False, freeze_bn: bool = True,
                 generator: Optional[torch.Generator] = None):
-        if self.config.compute_dtype == torch.float32:
+        cfg = self.config
+        if cfg.compute_dtype == torch.float32:
             fp32_policy()
+        elif not test_mode and cfg.fused_gru and not cfg.small:
+            raise ValueError(BF16_TRAINING_REFUSED)
         if test_mode:
             with torch.no_grad():
                 return self._test(*self._encode(image1, image2, False, False, None),

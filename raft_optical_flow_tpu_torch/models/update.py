@@ -1,9 +1,10 @@
 """RAFT update blocks: motion encoders, ConvGRU / SepConvGRU, flow and mask
 heads, NCHW inside.
 
-Counterpart of `raft_optical_flow_tpu/models/update.py` (unfused path; the
-fused SepConvGRU kernel is not ported yet, see ROADMAP.md). Submodule names
-are the flax names (`mask_0`, `flow_head`).
+Counterpart of `raft_optical_flow_tpu/models/update.py`. `SepConvGRU(fused=
+True)` runs both passes through the fused kernel K7
+(`kernels/gru_fused.py::SepConvGRUFused`) on the same parameters. Submodule
+names are the flax names (`mask_0`, `flow_head`).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from raft_optical_flow_tpu_torch.kernels.gru_fused import GATES, SepConvGRUFused
 from raft_optical_flow_tpu_torch.models.layers import conv
 
 
@@ -42,10 +44,18 @@ class ConvGRU(nn.Module):
 
 
 class SepConvGRU(nn.Module):
-    """Horizontal (1x5) then vertical (5x1) GRU pass."""
+    """Horizontal (1x5) then vertical (5x1) GRU pass.
 
-    def __init__(self, hidden_dim: int = 128, input_dim: int = 192 + 128):
+    `fused`: both passes through K7 (two launches on the card, the plain
+    version on the CPU), on the same six convs' parameters; h' comes back
+    channels-last. Under bf16 the fused path rounds conv(h) + conv(x) in one
+    fp32 sum where the unfused one rounds each conv's output to bf16, so the
+    two agree to the bf16 bar, not bit for bit (as in the JAX package).
+    """
+
+    def __init__(self, hidden_dim: int = 128, input_dim: int = 192 + 128, fused: bool = False):
         super().__init__()
+        self.fused = fused
         cin = hidden_dim + input_dim
         for gate in "zrq":
             setattr(self, f"conv{gate}1", conv(cin, hidden_dim, (1, 5), 1, (0, 2)))
@@ -59,6 +69,10 @@ class SepConvGRU(nn.Module):
         return (1 - z) * h + z * q
 
     def forward(self, h, x):
+        if self.fused:
+            weights = [t for name in GATES for t in (getattr(self, name).weight,
+                                                     getattr(self, name).bias)]
+            return SepConvGRUFused.apply(h, x, *weights)
         return self._pass(self._pass(h, x, "1"), x, "2")
 
 
@@ -108,10 +122,11 @@ class SmallUpdateBlock(nn.Module):
 
 
 class BasicUpdateBlock(nn.Module):
-    def __init__(self, corr_channels: int, hidden_dim: int = 128, context_dim: int = 128):
+    def __init__(self, corr_channels: int, hidden_dim: int = 128, context_dim: int = 128,
+                 fused_gru: bool = False):
         super().__init__()
         self.encoder = BasicMotionEncoder(corr_channels)
-        self.gru = SepConvGRU(hidden_dim, context_dim + 128)
+        self.gru = SepConvGRU(hidden_dim, context_dim + 128, fused=fused_gru)
         self.flow_head = FlowHead(hidden_dim, 256)
         self.mask_0 = conv(hidden_dim, 256, 3, 1, 1)
         self.mask_2 = conv(256, 64 * 9, 1, 1, 0)

@@ -149,7 +149,7 @@ def test_plain_runs_do_not_count_launches():
     ck.reset_launches()
     ck.corr_pyramid_lookup_cuda(tp, _t(coords), 3, fuse_coarse=True)
     assert ck.LAUNCHES == {"corr_lookup_level": 0, "corr_lookup_coarse_fused": 0,
-                           "corr_lookup_level_bwd": 0}
+                           "corr_lookup_level_bwd": 0, "corr_lookup_all_levels": 0}
 
 
 @pytest.mark.parametrize("shape", [(7, 9), (8, 8), (1, 5)])

@@ -14,7 +14,12 @@ version's einsums: max_rel = max|d| / max|ref| within 2e-5 (fp32 volume) and
 their C-long dot products in another order than their plain version's
 einsums: fp32 outputs within max_rel 2e-5; K4's bf16 windows within one
 bf16 rounding step of the plain fp32 value (plus 2e-5 * max|ref| for sums
-that cancel); K6 gives the same bits on every run.
+that cancel); K6 gives the same bits on every run. K7 (one SepConvGRU pass)
+sums its 5*(D+X)-long gate products in another order than its plain
+version's matmuls: fp32 within max_rel 1e-5; bf16 within one bf16 rounding
+step of the plain value, plus what one flipped rounding of r*h (a bf16 step of
+|rh| < 1, 2^-8) carries through the largest q-gate weight, plus 2e-5 *
+max|ref| for the sums' order. K8 (all levels) repeats K1's operations: exact.
 """
 
 import os
@@ -76,7 +81,7 @@ def test_pyramid_lookup_with_empty_level(cuda, fuse):
     torch.testing.assert_close(got, corr_pyramid_lookup(pyr, coords, 3), rtol=0, atol=0)
     expect = ({"corr_lookup_level": 1, "corr_lookup_coarse_fused": 1} if fuse
               else {"corr_lookup_level": 3, "corr_lookup_coarse_fused": 0})
-    expect["corr_lookup_level_bwd"] = 0
+    expect.update(corr_lookup_level_bwd=0, corr_lookup_all_levels=0)
     assert ck.LAUNCHES == expect
 
 
@@ -95,7 +100,8 @@ def test_raft_small_golden_on_card(cuda):
 
 
 def _max_rel(got, ref):
-    return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+    got, ref = got.detach().float(), ref.detach().float()
+    return float((got - ref).abs().max() / ref.abs().max())
 
 
 @pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
@@ -128,7 +134,7 @@ def test_lookup_function_backward_on_card(cuda):
     out = ck.corr_pyramid_lookup_cuda(tp, coords, 4, torch.bfloat16)
     out.float().square().sum().backward()
     assert ck.LAUNCHES == {"corr_lookup_level": 4, "corr_lookup_coarse_fused": 0,
-                           "corr_lookup_level_bwd": 4}
+                           "corr_lookup_level_bwd": 4, "corr_lookup_all_levels": 0}
     assert all(p.grad.dtype == torch.bfloat16 and torch.isfinite(p.grad.float()).all() for p in tp)
 
 
@@ -220,3 +226,95 @@ def test_ondemand_function_on_card(cuda):
                            "corr_ondemand_bwd_df2": 1}
     assert fmap1.grad.dtype == torch.bfloat16 and all(p.grad.dtype == torch.bfloat16 for p in tl)
     assert torch.isfinite(fmap1.grad.float()).all()
+
+
+def _gru_case(device, B, H, W, dtype, seed, X=256, D=128):
+    """h (tanh of normals), x (relu of normals) NHWC and the six gates'
+    (weight OIHW, bias), PyTorch's default conv init bound."""
+    from raft_optical_flow_tpu_torch.kernels.gru_fused import GATES
+
+    rng = np.random.RandomState(seed)
+    h = torch.from_numpy(np.tanh(rng.randn(B, H, W, D)).astype(np.float32))
+    x = torch.from_numpy(np.maximum(rng.randn(B, H, W, X), 0).astype(np.float32))
+    bound = 1.0 / np.sqrt(5 * (D + X))
+    weights = []
+    for name in GATES:
+        ks = (1, 5) if name.endswith("1") else (5, 1)
+        w = rng.uniform(-bound, bound, (D, D + X, *ks)).astype(np.float32)
+        weights.append(torch.from_numpy(w))
+        weights.append(torch.from_numpy(rng.uniform(-bound, bound, D).astype(np.float32)))
+    return h.to(device, dtype), x.to(device, dtype), [w.to(device) for w in weights]
+
+
+def _check_gru_pass_bf16(got, ref, w):
+    """One rounding step plus one flipped rh rounding through the q gate's
+    largest weight (columns 2D.. of w), plus 2e-5 * max|ref|."""
+    assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape
+    got, ref = got.float(), ref.float()
+    slack = 2.0**-8 * float(w[:, :, 256:].float().abs().max()) + 2e-5 * float(ref.abs().max())
+    assert torch.all((got - ref).abs() <= _bf16_step(ref) + slack)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W", [(1, 8, 37), (2, 5, 100), (1, 1, 9), (1, 9, 1)])
+def test_gru_pass_matches_plain(cuda, B, H, W, dtype):
+    """W = 37: one ragged strip of 44; W = 100: three strips (44, 44, 12),
+    interior strip edges in the 1x5 pass; 1-high and 1-wide: every tap but the
+    centre is padding in one of the passes."""
+    from raft_optical_flow_tpu_torch.kernels import gru_fused as gf
+
+    h, x, weights = _gru_case(cuda, B, H, W, dtype, seed=H * W)
+    gf.reset_launches()
+    for axis, part in ((2, weights[:6]), (1, weights[6:])):
+        w, b = gf.pass_weights(part, dtype)
+        got = gf.gru_pass(h, x, w, b, axis)
+        ref = gf.gru_pass_plain(h, x, w, b, axis)
+        if dtype == torch.float32:
+            assert _max_rel(got, ref) <= 1e-5, axis
+        else:
+            _check_gru_pass_bf16(got, ref, w)
+        h = ref
+    assert gf.LAUNCHES == {"sepconv_gru_pass": 2}
+
+
+def test_sepconv_gru_function_backward_on_card(cuda):
+    """Forward K7 (two launches); backward autograd of the reference on the
+    saved inputs: the same gradients as differentiating the reference itself."""
+    from raft_optical_flow_tpu_torch.kernels import gru_fused as gf
+
+    h, x, weights = _gru_case(cuda, 1, 8, 37, torch.float32, seed=5)
+    leaves = [t.permute(0, 3, 1, 2).requires_grad_() for t in (h, x)]
+    leaves += [w.requires_grad_() for w in weights]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with gf._full_fp32():
+            gf.reset_launches()
+            out = gf.SepConvGRUFused.apply(*leaves)
+            assert gf.LAUNCHES == {"sepconv_gru_pass": 2}
+            ref = gf._reference_nchw(leaves[0], leaves[1], leaves[2:])
+            assert _max_rel(out, ref) <= 1e-5
+            g = torch.randn_like(ref)
+            got = torch.autograd.grad(out, leaves, g)
+            want = torch.autograd.grad(ref, leaves, g)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for a, b in zip(got, want):
+        assert _max_rel(a, b) <= 1e-6
+
+
+@pytest.mark.parametrize("vol_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [(15, 22), (7, 16)])
+def test_all_levels_matches_plain(cuda, hw, vol_dtype):
+    pyr, coords = _case(cuda, *hw, vol_dtype, seed=hw[0])
+    if hw == (7, 16):
+        assert pyr[-1].shape[2] == 0
+    for radius in (3, 4):
+        ck.reset_launches()
+        got = ck.corr_pyramid_lookup_cuda_fused(pyr, coords, radius)
+        assert ck.LAUNCHES["corr_lookup_all_levels"] == 1
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, ck.corr_pyramid_lookup_fused_plain(pyr, coords, radius),
+                                   rtol=0, atol=0)
+        if hw == (7, 16):
+            assert torch.all(got[..., -((2 * radius + 1) ** 2):] == 0)

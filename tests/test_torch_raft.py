@@ -11,6 +11,7 @@ Tolerances:
     fidelity bar): the two frameworks round bf16 at different places.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -133,7 +134,7 @@ def test_cpu_run_launches_no_kernel(golden):
     ck.reset_launches()
     model(torch.from_numpy(i1), torch.from_numpy(i2), iters=2)
     assert ck.LAUNCHES == {"corr_lookup_level": 0, "corr_lookup_coarse_fused": 0,
-                           "corr_lookup_level_bwd": 0}
+                           "corr_lookup_level_bwd": 0, "corr_lookup_all_levels": 0}
 
 
 def test_zero_iterations_standard():
@@ -151,8 +152,21 @@ def test_zero_iterations_standard():
         (RAFTConfig(fused_gru=True, alternate_corr=True), {}),
     ],
 )
-def test_unported_paths_raise(config, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model = RAFT(config, device="cpu")
-        img = torch.zeros(1, 64, 64, 3)
-        model(img, img, iters=1, **kwargs)
+def test_unported_paths_raise(golden, config, kwargs):
+    """These `fused_gru` configurations were refused until the fused GRU was
+    ported; each now runs and matches its unfused counterpart at the same
+    weights (RAFT-small ignores the flag: bit for bit; RAFT-standard fp32:
+    EPE mean < 1e-3, the bar above)."""
+    i1, i2 = (torch.from_numpy(a) for a in _crop_pair(golden))
+    fused = RAFT(config, device="cpu")
+    unfused = RAFT(dataclasses.replace(config, fused_gru=False), device="cpu")
+    unfused.load_state_dict(fused.state_dict(), strict=True)
+    with torch.no_grad():
+        got = fused(i1, i2, iters=1, **kwargs)
+        ref = unfused(i1, i2, iters=1, **kwargs)
+    got, ref = (got, ref) if kwargs else (got[1], ref[1])
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    if config.small:
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    else:
+        assert _epe(got.numpy(), ref.numpy()).mean() < 1e-3

@@ -4,6 +4,7 @@
     python3 tools/profile_port_raft.py [--batch 16] [--iters 32] [--dtype bf16]
     python3 tools/profile_port_raft.py --mode train [--batch 4] [--iters 12]
     python3 tools/profile_port_raft.py [--mode train] --alternate_corr [--remat]
+    python3 tools/profile_port_raft.py --fused_gru [--alternate_corr]
 
 `--mode serve` (default): the serving workload of `bench.py::main` (1024x436
 frames padded to 1024x440, test mode). `--mode train`: one training step of
@@ -11,10 +12,11 @@ frames padded to 1024x440, test mode). `--mode train`: one training step of
 sequence loss, backward, clipped AdamW). `--alternate_corr` runs the
 on-demand correlation (K4 forward, K5 and K6 backward) instead of the
 materialized volume; `--remat` recomputes each GRU iteration in the
-backward. Seeded random weights and data. The
+backward; `--fused_gru` runs the SepConvGRU through K7 (serving, or fp32
+training). Seeded random weights and data. The
 call runs twice to warm up, then once under `torch.profiler`. Prints the
 device time by kernel (the 20 largest), the time per group (the port's CUDA
-lookup kernels, convolutions, matmuls, the rest), and the device busy share:
+kernels, convolutions, matmuls, the rest), and the device busy share:
 summed kernel time over the host-clock wall time of the profiled call (the
 profiler's own host overhead is inside that wall time, so the share is a
 lower bound). `--trace PATH` also writes the Chrome trace. Needs a CUDA card.
@@ -34,8 +36,9 @@ from torch.profiler import ProfilerActivity, profile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = (
-    ("lookup kernels (port)", re.compile(r"lookup_level_kernel|coarse_fused_kernel|"
-                                         r"lookup_level_bwd_kernel|ondemand_")),
+    ("port kernels (lookup, GRU)", re.compile(r"lookup_level_kernel|coarse_fused_kernel|"
+                                              r"lookup_level_bwd_kernel|ondemand_|"
+                                              r"gru_pass_kernel")),
     ("convolution", re.compile(r"conv|fprop|implicit|dgrad|cudnn|xmma", re.I)),
     ("matmul", re.compile(r"gemm|cutlass|cublas", re.I)),
 )
@@ -78,6 +81,7 @@ def main() -> int:
     ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
     ap.add_argument("--alternate_corr", action="store_true", help="on-demand correlation")
     ap.add_argument("--remat", action="store_true", help="recompute each GRU iteration")
+    ap.add_argument("--fused_gru", action="store_true", help="the SepConvGRU through K7")
     ap.add_argument("--trace", metavar="PATH", help="write the Chrome trace to PATH")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -90,7 +94,8 @@ def main() -> int:
     train = args.mode == "train"
     batch = args.batch or (4 if train else 16)
     iters = args.iters or (12 if train else 32)
-    config = RAFTConfig(compute_dtype=dtype, alternate_corr=args.alternate_corr, remat=args.remat)
+    config = RAFTConfig(compute_dtype=dtype, alternate_corr=args.alternate_corr, remat=args.remat,
+                        fused_gru=args.fused_gru)
     run = (_train_call if train else _serve_call)(config, batch, iters)
     for _ in range(2):
         run()
@@ -115,8 +120,9 @@ def main() -> int:
     if device_ms == 0:
         raise RuntimeError("the profiler recorded no device time")
     print(f"{torch.cuda.get_device_name(0)} mode={args.mode} batch={batch} iters={iters} "
-          f"dtype={args.dtype} alternate_corr={args.alternate_corr} remat={args.remat}: wall {wall_ms:.3f} ms (profiled), device {device_ms:.3f} ms, "
-          f"busy share {device_ms / wall_ms:.4f}")
+          f"dtype={args.dtype} alternate_corr={args.alternate_corr} remat={args.remat} "
+          f"fused_gru={args.fused_gru}: wall {wall_ms:.3f} ms (profiled), "
+          f"device {device_ms:.3f} ms, busy share {device_ms / wall_ms:.4f}")
     totals = {name: 0.0 for name, _ in GROUPS}
     totals["other (elementwise, norms, copies)"] = 0.0
     for ms, _, key in kernels:
