@@ -50,8 +50,8 @@ code is not 0):
             step, remat off and on (ms/step, peak memory, launches per step);
   fused_gru the fused SepConvGRU (`fused_gru`): K7 (sepconv_gru_pass) against
             its plain version pass by pass at the batch-16 bf16 serving shape,
-            the batch-4 fp32 training shape, W = 37 and the 1-high and
-            1-wide levels; RAFT-standard bf16 serving (1024x440, 32
+            the batch-4 fp32 training shape, W = 37, the 1-high and 1-wide
+            levels and 300-long rows (bf16: segments with a halo); RAFT-standard bf16 serving (1024x440, 32
             iterations) at batch 16 and 1 and fp32 at batch 1 against the
             unfused path with the same weights (64 K7 launches per forward;
             ms, pairs/s, peak memory of both); one fp32 training step (batch
@@ -65,9 +65,15 @@ code is not 0):
             PyTorch library yardstick (F.grid_sample, its backward, and for
             K4-K6 the dot with fmap1; timed only, never used by the port),
             and the bound: bytes at 3.35 TB/s or operations at the peak rate
-            of the operands' type, whichever is larger. K7's yardstick is the
-            unfused SepConvGRU pass (three cuDNN convs and their elementwise
-            work), K8's the four F.grid_sample calls.
+            of the operands' type, whichever is larger. Every kernel is
+            timed in an eager loop; K3, about as short as its wrapper's host
+            time, is also timed as CUDA-graph replays (with its yardsticks
+            and its four levels of one iteration: the graph_* keys). K7's
+            yardstick is the unfused SepConvGRU pass (three cuDNN convs and
+            their elementwise work); its row also gives the fp32 variant's
+            time at the training shape, and its log line the weight bytes
+            per launch worked out from the launch plan. K8's yardstick is
+            the four F.grid_sample calls.
 
 With every phase run (the default) the last two lines are a JSON object of
 per-kernel numbers and `{"ok": true, "device": {...}}`. Runs on CUDA only: it
@@ -133,6 +139,31 @@ def cuda_ms(fn, n: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
+def graph_ms(fn, n: int, reps: int = 20) -> float:
+    """Mean device time of fn() when its launches run back to back: reps calls
+    captured in one CUDA graph, replayed n times, by CUDA events. For kernels
+    shorter than their wrapper's host time, where an eager loop measures the
+    host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up on the capture stream (cuBLAS workspaces)
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * reps)
+
+
 def serving_pyramid(B, h, w, dtype, seed, C=256, levels=4):
     """Correlation pyramid from seeded random fmaps, as the model builds it."""
     from raft_optical_flow_tpu_torch.ops.corr import build_corr_pyramid_from_fmaps
@@ -173,7 +204,7 @@ def phase_device(state):
     _build.load()
     secs = time.perf_counter() - t0
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(k in line for k in ("registers", "spill", "wgmma", "arning")):
             log(f"  ptxas: {line.strip()}")
     built = "built" if _build.build_seconds is not None else "reused"
     log(f"phase device: ok, kernels {built} in {secs:.2f} s ({lib.name})")
@@ -1011,12 +1042,15 @@ def _k7_kernel_checks(state):
 
     err, lines = 0.0, []
     # serving (RAFT-standard bf16 at 1024x440, batch 16), training (fp32
-    # chairs-size crop, batch 4), a width of one ragged strip (37 < 44), and
-    # the 1-high and 1-wide levels where each tap but the centre is padding in
-    # one of the passes; each pass held on the plain version's own input
+    # chairs-size crop, batch 4), 37-long rows (one ragged fp32 strip of 44;
+    # two bf16 rows to a block), the 1-high and 1-wide levels where each tap
+    # but the centre is padding in one of the passes, and 300-long rows (bf16:
+    # segments of 124 with a 2-position halo); each pass held on the plain
+    # version's own input
     for B, H, W, dt in ((16, 55, 128, torch.bfloat16), (4, 46, 62, torch.float32),
                         (1, 8, 37, torch.float32), (1, 8, 37, torch.bfloat16),
-                        (2, 1, 37, torch.bfloat16), (2, 37, 1, torch.float32)):
+                        (2, 1, 37, torch.bfloat16), (2, 37, 1, torch.float32),
+                        (1, 3, 300, torch.bfloat16)):
         h, x, weights = gru_inputs(B, H, W, dt, seed=B * 1000 + H * W)
         for axis, part in ((2, weights[:6]), (1, weights[6:])):
             w, b = gf.pass_weights(part, dt)
@@ -1511,9 +1545,30 @@ def _time_k7():
         row[k] = [t / 2 for t in row[k]]
     row.update(per="launch: one GRU step over 2", pass_1x5_ms=one_h, pass_5x1_ms=one_v,
                library_1x5_ms=lib_h, library_5x1_ms=lib_v)
+    # weight bytes per launch, computed from the launch plan at this shape
+    # (nothing on the card counts them): every block reads the pass's whole
+    # weight image once; the 1x5 pass runs a block per 128-position line, the
+    # 5x1 pass two 55-position lines per block
+    image = 5 * (D + X) * 3 * D * 2
+    plan_h, plan_v = B * H * image, (B * W + 1) // 2 * image
     log(f"timing sepconv_gru_pass per launch: {row['ms']:.4f} ms (1x5 {one_h:.4f}, 5x1 "
         f"{one_v:.4f}), plain {row['plain_ms']:.4f}, unfused {row['library_ms']:.4f} (1x5 "
-        f"{lib_h:.4f}, 5x1 {lib_v:.4f}), bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        f"{lib_h:.4f}, 5x1 {lib_v:.4f}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+        f"weight bytes per launch from the plan (not measured): 1x5 {plan_h / 1e9:.3f} GB, "
+        f"5x1 {plan_v / 1e9:.3f} GB")
+    # the fp32 variant (CUDA-core FMAs) at the fp32 training shape: batch 2,
+    # 368x496 -> 46x62
+    del h, x, h1
+    h, x, weights = gru_inputs(2, 46, 62, torch.float32, seed=33)
+    fp32 = []
+    for axis, part in ((2, weights[:6]), (1, weights[6:])):
+        w, b = gf.pass_weights(part, torch.float32)
+        check_k7(f"fp32 timed inputs axis={axis}", gf.gru_pass(h, x, w, b, axis),
+                 gf.gru_pass_plain(h, x, w, b, axis), w)
+        fp32.append(cuda_ms(lambda: gf.gru_pass(h, x, w, b, axis), 10))
+    row.update(fp32_1x5_ms=fp32[0], fp32_5x1_ms=fp32[1], fp32_ms=sum(fp32) / 2)
+    log(f"timing sepconv_gru_pass fp32 (B=2 46x62, CUDA cores): 1x5 {fp32[0]:.4f} ms, 5x1 "
+        f"{fp32[1]:.4f} ms, per launch {row['fp32_ms']:.4f} ms")
     return row
 
 
@@ -1554,17 +1609,24 @@ def _time_k3(radius, dt):
         if not rels[-1] <= VJP_TOL[dt] or not torch.isfinite(out.float()).all():
             raise AssertionError(f"K3 timed inputs l{lvl}: max_rel {rels[-1]:.3e}")
         del out, ref32
+    # eager loops, as every other kernel is timed; the kernel runs about as
+    # long as its wrapper's host time, so kernel, plain version, library and
+    # all four levels are also timed as CUDA-graph replays (device time)
     p1 = cuda_ms(k3_plain, 3)
     k_a = cuda_ms(k3, 20)
     k_b = cuda_ms(k3, 20)
     p2 = cuda_ms(k3_plain, 3)
     lib = cuda_ms(lib_fn, 10)
+    pg = graph_ms(k3_plain, 3, reps=3)
+    kg = graph_ms(k3, 10)
+    libg = graph_ms(lib_fn, 10)
 
     def k3_all():
         for (lvl, hl, wl), cl in zip(levels, scaled):
             ck.corr_lookup_level_bwd(cl, g, hl, wl, radius, dt)
 
-    all_ms = cuda_ms(k3_all, 20)
+    all_eager = cuda_ms(k3_all, 20)
+    all_graph = graph_ms(k3_all, 10, reps=5)
     # bytes: the dense dcorr written once, g and coords read once
     nbytes = B * h * w * (h * w * 2 + K * K * 2 + 8)
     # operations: each element of each query's in-bounds (K+1)^2 patch takes
@@ -1579,15 +1641,17 @@ def _time_k3(radius, dt):
     row = {
         "ms": min(k_a, k_b), "ms_readings": [k_a, k_b],
         "plain_ms": min(p1, p2), "plain_readings": [p1, p2],
-        "library_ms": lib, "bytes": nbytes, "all_levels_ms": all_ms,
+        "library_ms": lib, "bytes": nbytes, "all_levels_ms": all_eager, "graph_ms": kg,
+        "graph_plain_ms": pg, "graph_library_ms": libg, "all_levels_graph_ms": all_graph,
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
     }
-    log(f"timing corr_lookup_level_bwd: B={B} Q={h * w} level {h}x{w} r={radius} bf16 kernel "
-        f"{k_a:.4f}/{k_b:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, grid_sampler_2d_backward "
-        f"{lib:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
-        f"{nbytes / 1e6:.2f} MB); all four levels {all_ms:.4f} ms; max_rel vs plain by "
-        f"level {rels!r}")
+    log(f"timing corr_lookup_level_bwd (eager loop; CUDA-graph replays in brackets): B={B} "
+        f"Q={h * w} level {h}x{w} r={radius} bf16 kernel {k_a:.4f}/{k_b:.4f} ms ({kg:.4f}), "
+        f"plain {p1:.4f}/{p2:.4f} ms ({pg:.4f}), grid_sampler_2d_backward {lib:.4f} ms "
+        f"({libg:.4f}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+        f"{nbytes / 1e6:.2f} MB); all four levels {all_eager:.4f} ms ({all_graph:.4f}); "
+        f"max_rel vs plain by level {rels!r}")
     return row
 
 
@@ -1651,6 +1715,11 @@ def main() -> int:
         })
     kernels[-1]["note"] = ("no model path launches it (as in the JAX package); launches "
                            "counted over one call of its public entry")
+    by_name = {k["name"]: k for k in kernels}
+    k3 = state["timing"]["corr_lookup_level_bwd"]
+    by_name["corr_lookup_level_bwd"].update(
+        {k: k3[k] for k in ("all_levels_ms", "graph_ms", "graph_plain_ms", "graph_library_ms",
+                            "all_levels_graph_ms")})
     log(state["smi"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -146,21 +148,28 @@ __global__ void __launch_bounds__(kThreads)
 // 1 - wx at w = x0, wx at w = x0 + 1, and 0 elsewhere; Y_b(h) likewise in y.
 // The coords gradient is zero (RAFT detaches coords before every lookup).
 //
+// Bound on the card: bytes. The dense dcorr (B*Q*Hl*Wl elements) is written
+// once and dwarfs the g read (B*Q*K^2) and the coords; at most (K+1)^2 of a
+// row's elements are not zero, and each takes a few dozen flops.
+//
 // Design: on the TPU the gradient was two selector matmuls per query tile
 // (one-hot placement matmuls unflattened the cotangent, and the query tile
-// was halved to fit VMEM). On the card it is one thread per element of the
-// dense [Hl, Wl] row of each query: every element is written exactly once (no
-// atomics, no memset), consecutive threads write consecutive w. An element
-// outside the query's (2r+2)^2 patch gets 0 after one test; one inside it
-// sums the at most 2 x 2 window taps whose weight reaches (h, w), fp32
-// weights and sums, one rounding to the volume dtype. Deterministic. A
-// thread keeps one (h, w) and walks the queries, so its index math is one
-// 32-bit division, not a 64-bit one per element.
-//
-// Bound on the card: bytes. The dense dcorr write (B*Q*Hl*Wl elements)
-// dwarfs the g read (B*Q*K^2) and the coords; a patch element takes about 16
-// multiply-adds. Making it fast (wider stores, one buffer for all iterations'
-// gradients) is later work.
+// was halved to fit VMEM). On the card it is a store of the dense rows at
+// memset speed with a small patch in each. A block owns a span of the flat
+// dcorr buffer (at most 4 16-byte stores per thread: 8,192 bf16 or 4,096
+// fp32 elements, whatever the rows' length or alignment; halved down to 512
+// elements at the coarse levels, so that every SM still gets several blocks
+// of their patch arithmetic) and builds it in a shared-memory tile: zero
+// the span's words of the tile; then the block's threads share the patch items of every query
+// whose row meets the span, each item one element (h, w) of the query's
+// (2r+5)^2 box around floor(coords) that lies in the span, computed as
+// before (the at most 2 x 2 taps that reach it, fp32 weights and sums in
+// the same order, one rounding) and written into the tile; then each
+// thread copies its 16-byte pieces of the tile to dcorr, neighbouring
+// threads on neighbouring addresses. The arithmetic is
+// spread over all threads (a few items each at level 0), not left to the
+// few whose store meets a patch, and every element of dcorr is written once.
+// No atomics, no memset of dcorr, no second pass, deterministic.
 
 // Weight that window column a (centre c, level-scaled) gives pixel p of a row
 // of n pixels: K1's bilinear weight, 0 where column a does not reach p.
@@ -174,53 +183,104 @@ __device__ __forceinline__ float tap_weight(float c, int a, int radius, int p, i
   return 0.0f;
 }
 
-// g: [BQ, K*K]; coords: [BQ, 2] level-scaled; dcorr: [BQ, H, W].
-// Grid: x covers one query's H*W row (32-bit index math, one division per
-// thread), y walks the queries with a stride of gridDim.y.
+// dcorr at (h, w) of the query with coords (cx, cy) and cotangent row gq.
+// Window column a sits at floor(cx) + a - r, give or take one for the
+// rounding of cx + (a - r), and reaches its tap and the next: so only a in
+// [w - floor(cx) + r - 2, w - floor(cx) + r + 1] can reach w, and none can
+// once w is more than r + 2 from floor(cx). Same in y. Far out-of-bounds
+// coords fail this test in float, before any int cast.
+template <typename TG>
+__device__ __forceinline__ float bwd_element(float cx, float cy, const TG* __restrict__ gq,
+                                             int h, int w, int H, int W, int radius) {
+  const int K = 2 * radius + 1;
+  const float lim = (float)radius + 2.0f;
+  const float dx = (float)w - floorf(cx);
+  const float dy = (float)h - floorf(cy);
+  float acc = 0.0f;
+  if (dx >= -lim && dx <= lim && dy >= -lim && dy <= lim) {
+    const int a_lo = (int)dx + radius - 2;
+    const int b_lo = (int)dy + radius - 2;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int a = a_lo + i;
+      if (a < 0 || a >= K) continue;
+      const float xw = tap_weight(cx, a, radius, w, W);
+      if (xw == 0.0f) continue;
+      float t = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int b = b_lo + j;
+        if (b < 0 || b >= K) continue;
+        t += tap_weight(cy, b, radius, h, H) * load_f(gq + a * K + b);
+      }
+      acc += xw * t;
+    }
+  }
+  return acc;
+}
+
+constexpr int kBwdStores = 4;       // 16-byte stores per thread
+constexpr int kBwdMinSpan = 512;    // elements: the smallest span per block
+constexpr int kBwdMinBlocks = 528;  // 4 blocks per SM of an H100
+
+// g: [BQ, K*K]; coords: [BQ, 2] level-scaled; dcorr: [BQ, H, W], 16-byte
+// aligned, n = BQ*H*W elements. Block b owns elements [b * span_max, b *
+// span_max + span_max) of the flat dcorr; span_max is at most the tile and a
+// multiple of a 16-byte store.
 template <typename TG, typename TOut>
 __global__ void __launch_bounds__(kThreads)
     lookup_level_bwd_kernel(const float* __restrict__ coords,
                             const TG* __restrict__ g, TOut* __restrict__ dcorr,
-                            int64_t bq_total, int H, int W, int radius) {
+                            int64_t n, int span_max, int H, int W, int radius) {
+  constexpr int V = 16 / sizeof(TOut);
+  constexpr int kSpan = kThreads * kBwdStores * V;
+  __shared__ __align__(16) TOut tile[kSpan];
+  uint4* tile4 = reinterpret_cast<uint4*>(tile);
+  const int64_t e0 = (int64_t)blockIdx.x * span_max;
+  const int span = (int)(n - e0 < span_max ? n - e0 : span_max);
+  // zero only the 16-byte words the span covers (a halved span at the
+  // coarse levels leaves most of the tile unused)
+  const int words = (span + V - 1) / V;
+#pragma unroll
+  for (int i = 0; i < kBwdStores; ++i) {
+    const int j = threadIdx.x + i * kThreads;
+    if (j < words) tile4[j] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+
+  // patch items: each query meeting the span, each element of its box
   const int hw = H * W;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= hw) return;
-  const int h = e / W;
-  const int w = e - h * W;
-  const int K = 2 * radius + 1;
+  const int KK = (2 * radius + 1) * (2 * radius + 1);
   const float lim = (float)radius + 2.0f;
-  for (int64_t q = blockIdx.y; q < bq_total; q += gridDim.y) {
-    const float cx = coords[2 * q];
-    const float cy = coords[2 * q + 1];
-    // Window column a sits at floor(cx) + a - r, give or take one for the
-    // rounding of cx + (a - r), and reaches its tap and the next: so only
-    // a in [w - floor(cx) + r - 2, w - floor(cx) + r + 1] can reach w, and
-    // none can once w is more than r + 2 from floor(cx). Same in y. Far
-    // out-of-bounds coords fail this test in float, before any int cast.
-    const float dx = (float)w - floorf(cx);
-    const float dy = (float)h - floorf(cy);
-    float acc = 0.0f;
-    if (dx >= -lim && dx <= lim && dy >= -lim && dy <= lim) {
-      const TG* gq = g + q * (int64_t)(K * K);
-      const int a_lo = (int)dx + radius - 2;
-      const int b_lo = (int)dy + radius - 2;
+  const int side = 2 * radius + 5;
+  const int rb = H < side ? H : side, cb = W < side ? W : side;
+  const int box = rb * cb;
+  const int64_t q0 = e0 / hw;
+  const int nq = (int)((e0 + span - 1) / hw - q0) + 1;
+  for (int it = threadIdx.x; it < nq * box; it += kThreads) {
+    const int qo = it / box;
+    const int rem = it - qo * box;
+    const int by = rem / cb;
+    const int64_t q = q0 + qo;
+    const float cx = coords[2 * q], cy = coords[2 * q + 1];
+    // the box's corner: floor(coords) - (radius + 2), moved inside the level;
+    // in float first, so far out-of-bounds and NaN coords never reach the cast
+    const int h = (int)fminf(fmaxf(floorf(cy) - lim, 0.0f), (float)(H - rb)) + by;
+    const int w = (int)fminf(fmaxf(floorf(cx) - lim, 0.0f), (float)(W - cb)) + rem - by * cb;
+    const int64_t e = q * hw + h * W + w - e0;
+    if (e < 0 || e >= span) continue;
+    store_f(tile + e, bwd_element(cx, cy, g + q * KK, h, w, H, W, radius));
+  }
+  __syncthreads();
+
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int a = a_lo + i;
-        if (a < 0 || a >= K) continue;
-        const float xw = tap_weight(cx, a, radius, w, W);
-        if (xw == 0.0f) continue;
-        float t = 0.0f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int b = b_lo + j;
-          if (b < 0 || b >= K) continue;
-          t += tap_weight(cy, b, radius, h, H) * load_f(gq + a * K + b);
-        }
-        acc += xw * t;
-      }
+  for (int i = 0; i < kBwdStores; ++i) {
+    const int j = threadIdx.x + i * kThreads;
+    if ((j + 1) * V <= span) {
+      *reinterpret_cast<uint4*>(dcorr + e0 + (int64_t)j * V) = tile4[j];
+    } else {
+      for (int k = j * V; k < span; ++k) dcorr[e0 + k] = tile[k];
     }
-    store_f(dcorr + q * (int64_t)hw + e, acc);
   }
 }
 
@@ -240,11 +300,18 @@ void launch_level(const void* corr, const void* coords, void* out, int64_t bq,
 }
 
 template <typename TG, typename TOut>
-void launch_level_bwd(const void* coords, const void* g, void* dcorr, int64_t bq,
-                      int H, int W, int radius, dim3 blocks, cudaStream_t s) {
-  lookup_level_bwd_kernel<TG, TOut><<<blocks, kThreads, 0, s>>>(
-      static_cast<const float*>(coords), static_cast<const TG*>(g),
-      static_cast<TOut*>(dcorr), bq, H, W, radius);
+int launch_level_bwd(const void* coords, const void* g, void* dcorr, int64_t n, int H,
+                     int W, int radius, cudaStream_t s) {
+  // the full tile, halved while the level is too small to give every SM
+  // several blocks (the coarse levels, where most elements are patch items)
+  int span = kThreads * kBwdStores * (16 / sizeof(TOut));
+  while (span > kBwdMinSpan && (n + span - 1) / span < kBwdMinBlocks) span /= 2;
+  const int64_t blocks = (n + span - 1) / span;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  lookup_level_bwd_kernel<TG, TOut><<<(unsigned)blocks, kThreads, 0, s>>>(
+      static_cast<const float*>(coords), static_cast<const TG*>(g), static_cast<TOut*>(dcorr),
+      n, span, H, W, radius);
+  return (int)cudaGetLastError();
 }
 
 template <typename TIn, typename TOut>
@@ -336,8 +403,8 @@ extern "C" int raft_corr_lookup_all_levels(const void* const* level_ptrs,
 }
 
 // coords [B*Q, 2] fp32 level-scaled, g [B*Q, K*K] (g_dtype), dcorr [B*Q, H, W]
-// (dcorr_dtype, the volume's). dtype codes as above. Every element of dcorr is
-// written. Returns a cudaError_t as int.
+// (dcorr_dtype, the volume's), 16-byte aligned. dtype codes as above. Every
+// element of dcorr is written. Returns a cudaError_t as int.
 extern "C" int raft_corr_lookup_level_bwd(const void* coords, const void* g,
                                           void* dcorr, int B, int Q, int H, int W,
                                           int radius, int g_dtype, int dcorr_dtype,
@@ -347,16 +414,17 @@ extern "C" int raft_corr_lookup_level_bwd(const void* coords, const void* g,
     return (int)cudaErrorInvalidValue;
   const int64_t bq = (int64_t)B * Q;
   if (bq == 0) return (int)cudaSuccess;
-  if ((int64_t)H * W > 0x7fffffff - kThreads) return (int)cudaErrorInvalidConfiguration;
-  const int hw = H * W;
-  const dim3 blocks((unsigned)((hw + kThreads - 1) / kThreads),
-                    (unsigned)(bq < 65535 ? bq : 65535));
+  // a block's patch items (queries meeting its span x their box) in an int
+  const int64_t box = (int64_t)std::min(H, 2 * radius + 5) * std::min(W, 2 * radius + 5);
+  if ((int64_t)H * W > 0x7fffffff || (kThreads * kBwdStores * 8 + 2) * box > 0x7fffffff)
+    return (int)cudaErrorInvalidConfiguration;
+  if (reinterpret_cast<uintptr_t>(dcorr) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  const int64_t n = bq * H * W;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (g_dtype * 2 + dcorr_dtype) {
-    case 0: launch_level_bwd<float, float>(coords, g, dcorr, bq, H, W, radius, blocks, s); break;
-    case 1: launch_level_bwd<float, __nv_bfloat16>(coords, g, dcorr, bq, H, W, radius, blocks, s); break;
-    case 2: launch_level_bwd<__nv_bfloat16, float>(coords, g, dcorr, bq, H, W, radius, blocks, s); break;
-    default: launch_level_bwd<__nv_bfloat16, __nv_bfloat16>(coords, g, dcorr, bq, H, W, radius, blocks, s); break;
+    case 0: return launch_level_bwd<float, float>(coords, g, dcorr, n, H, W, radius, s);
+    case 1: return launch_level_bwd<float, __nv_bfloat16>(coords, g, dcorr, n, H, W, radius, s);
+    case 2: return launch_level_bwd<__nv_bfloat16, float>(coords, g, dcorr, n, H, W, radius, s);
+    default: return launch_level_bwd<__nv_bfloat16, __nv_bfloat16>(coords, g, dcorr, n, H, W, radius, s);
   }
-  return (int)cudaGetLastError();
 }

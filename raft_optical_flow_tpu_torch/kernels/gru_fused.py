@@ -5,7 +5,10 @@ Counterpart of `raft_optical_flow_tpu/kernels/gru_fused.py`. One CUDA kernel
 
   - K7 `sepconv_gru_pass`: one directional pass of the three gates (replaces
     `_gru_pass_kernel`), launched once for the horizontal 1x5 pass and once
-    for the vertical 5x1 pass.
+    for the vertical 5x1 pass. In bf16 it runs on the tensor cores (`wgmma`,
+    the weights streamed through shared memory), after a small kernel that
+    lays the pass's weights out as the tiles they read; in fp32 on the CUDA
+    cores.
 
 Parameters are the port's modules' own: `params` maps `convz1`, `convr1`,
 `convq1` (1x5) and `convz2`, `convr2`, `convq2` (5x1) to (weight [D, D+X, kh,
@@ -44,6 +47,9 @@ LAUNCHES: Dict[str, int] = {"sepconv_gru_pass": 0}
 
 GATES = ("convz1", "convr1", "convq1", "convz2", "convr2", "convq2")
 KERNEL_HIDDEN = 128  # the kernel's D (RAFT-standard's hidden_dim)
+# the bf16 kernel's widest x: 132 staged rows of h|x and two 16 KB weight
+# slots in a block's 227 KB of shared memory (csrc/gru_fused.cu)
+KERNEL_MAX_X_BF16 = 608
 _TAPS = 5
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
@@ -61,8 +67,10 @@ def _kernels() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load()
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.raft_sepconv_gru_pass.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, P]
+        lib.raft_sepconv_gru_pass.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, P]
         lib.raft_sepconv_gru_pass.restype = I
+        lib.raft_sepconv_gru_scratch_bytes.argtypes = [I, I, I]
+        lib.raft_sepconv_gru_scratch_bytes.restype = ctypes.c_int64
         _lib = lib
     return _lib
 
@@ -141,8 +149,9 @@ def gru_pass(h: torch.Tensor, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     h [B, H, W, D], x [B, H, W, X]: contiguous NHWC, both fp32 or both bf16;
     w [5, D+X, 3D] in their dtype and b [3D] fp32 from `pass_weights`; axis 2
     the 1x5 pass, 1 the 5x1 pass. Returns h' [B, H, W, D] in h's dtype. The
-    kernel takes D = 128 and X a multiple of 16; a CPU tensor runs the plain
-    version at any width.
+    kernel takes D = 128 and X a multiple of 16 (bf16: at most 608); a CPU
+    tensor runs the plain version at any width. In bf16 the launch first lays
+    w out in a scratch buffer as the tiles the tensor cores read.
     """
     _check_pass(h, x, w, b, axis)
     if not h.is_cuda:
@@ -152,16 +161,22 @@ def gru_pass(h: torch.Tensor, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if D != KERNEL_HIDDEN or X <= 0 or X % 16:
         raise ValueError(f"the kernel takes D = {KERNEL_HIDDEN} and X a multiple of 16, "
                          f"got D = {D}, X = {X}")
+    if h.dtype == torch.bfloat16 and X > KERNEL_MAX_X_BF16:
+        raise ValueError(f"the bf16 kernel takes X at most {KERNEL_MAX_X_BF16}, got X = {X}")
     if any(t.data_ptr() % 16 for t in (h, x)):
         raise ValueError("h and x must be 16-byte aligned")
     out = torch.empty_like(h)
     if out.numel() == 0:
         return out
     lib = _kernels()
+    code = _DTYPE_CODE[h.dtype]
+    n_scratch = lib.raft_sepconv_gru_scratch_bytes(D, X, code)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=h.device) if n_scratch else None
     with torch.cuda.device(h.device):
         err = lib.raft_sepconv_gru_pass(
-            h.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            B, H, W, D, X, axis, _DTYPE_CODE[h.dtype], torch.cuda.current_stream().cuda_stream,
+            h.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, out.data_ptr(),
+            B, H, W, D, X, axis, code, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"sepconv_gru_pass: CUDA error {err} at launch")

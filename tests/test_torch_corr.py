@@ -16,6 +16,7 @@ from raft_optical_flow_tpu.kernels.corr_lookup import corr_pyramid_lookup_pallas
 from raft_optical_flow_tpu.ops import corr as jcorr
 from raft_optical_flow_tpu_torch.kernels import corr_lookup as ck
 from raft_optical_flow_tpu_torch.ops import corr as tcorr
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _inputs(seed=0, B=2, H=12, W=16, C=32, max_disp=4.0):

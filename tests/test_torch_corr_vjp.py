@@ -20,6 +20,7 @@ from raft_optical_flow_tpu.kernels.corr_lookup import corr_pyramid_lookup_pallas
 from raft_optical_flow_tpu.ops.corr import all_pairs_correlation, build_corr_pyramid
 from raft_optical_flow_tpu_torch.kernels import corr_lookup as ck
 from raft_optical_flow_tpu_torch.ops.corr import corr_pyramid_lookup
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 

@@ -33,20 +33,10 @@ from raft_optical_flow_tpu_torch.utils.weights import (
     load_flax_npz,
     state_dict_to_flax,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 ITERS = 2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for these small CPU shapes: under the suite's
-    six workers, torch's default of one thread per core oversubscribes the
-    cores and these tests run 10-40x slower."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -22,19 +22,9 @@ import torch
 from raft_optical_flow_tpu.kernels.gru_fused import sepconv_gru_pallas
 from raft_optical_flow_tpu.kernels.gru_fused import sepconv_gru_reference as jax_reference
 from raft_optical_flow_tpu_torch.kernels import gru_fused as gf
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, H, D, X = 1, 8, 16, 24
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for these small CPU shapes: under the suite's
-    six workers, torch's default of one thread per core oversubscribes the
-    cores and these tests run 10-40x slower."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _case(W, seed=3):

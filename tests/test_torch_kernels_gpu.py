@@ -127,6 +127,35 @@ def test_lookup_bwd_matches_plain(cuda, radius, vol_dtype, g_dtype):
     assert ck.LAUNCHES["corr_lookup_level_bwd"] == len(pyr)
 
 
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vol_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [(46, 62), (23, 31), (11, 15), (5, 7), (1, 5), (2, 3), (1, 1)])
+def test_lookup_bwd_level_shapes(cuda, hw, vol_dtype, g_dtype):
+    """K3 at the four levels of the 368x496 training shape (Q = 46*62 queries,
+    radius 4) and at rows shorter than one 16-byte store (8 bf16 or 4 fp32
+    elements: the stores straddle rows and queries), coords around and inside
+    the level, integral ones among them, and rows of queries far outside it
+    on either side (their rows all zero)."""
+    Hl, Wl = hw
+    B, Q, radius = 1, 46 * 62, 4
+    rng = np.random.RandomState(Hl * 100 + Wl)
+    coords = np.stack([rng.uniform(-6, Wl + 5, (B, Q)), rng.uniform(-6, Hl + 5, (B, Q))], -1)
+    coords[:, ::7] = np.round(coords[:, ::7])
+    coords[:, :40] = 1.0e7
+    coords[:, 40:80] = -1.0e7
+    coords = torch.from_numpy(coords.astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.randn(B, Q, (2 * radius + 1) ** 2).astype(np.float32))
+    g = g.to(cuda, g_dtype)
+    ck.reset_launches()
+    got = ck.corr_lookup_level_bwd(coords, g, Hl, Wl, radius, vol_dtype)
+    ref = ck.corr_lookup_level_bwd_plain(coords, g, Hl, Wl, radius, torch.float32)
+    assert ck.LAUNCHES["corr_lookup_level_bwd"] == 1
+    assert got.dtype == vol_dtype and got.shape == (B, Q, Hl, Wl)
+    tol = 2e-5 if vol_dtype == torch.float32 else 3e-2
+    assert _max_rel(got, ref) <= tol
+    assert torch.all(got[:, :80] == 0)
+
+
 def test_lookup_function_backward_on_card(cuda):
     pyr, coords = _case(cuda, 9, 12, torch.bfloat16, seed=3)
     tp = [c.detach().requires_grad_() for c in pyr]
@@ -256,14 +285,23 @@ def _check_gru_pass_bf16(got, ref, w):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,W", [(1, 8, 37), (2, 5, 100), (1, 1, 9), (1, 9, 1)])
-def test_gru_pass_matches_plain(cuda, B, H, W, dtype):
-    """W = 37: one ragged strip of 44; W = 100: three strips (44, 44, 12),
-    interior strip edges in the 1x5 pass; 1-high and 1-wide: every tap but the
-    centre is padding in one of the passes."""
+@pytest.mark.parametrize("B,H,W,X", [
+    (16, 55, 128, 256), (1, 55, 128, 256), (1, 8, 37, 256), (1, 7, 37, 256),
+    (2, 5, 100, 256), (3, 5, 5, 256), (1, 1, 9, 256), (1, 9, 1, 256), (1, 3, 300, 256),
+    (2, 13, 70, 144),
+])
+def test_gru_pass_matches_plain(cuda, B, H, W, X, dtype):
+    """Both passes against the plain version. 16x55x128: the serving shape
+    (the 5x1 pass's 55-long columns two to a block, the 1x5 pass's 128-long
+    rows one to a block) and 1x55x128 its batch-1 form; 8x37 and 7x37: 37-long
+    rows two to a block (7 rows: the last block half empty); 5x100: rows of
+    63..128, a block each, and 5-long columns packed twelve to a warpgroup;
+    5x5 both ways short; 1-high and 1-wide: every tap but the centre is
+    padding in one of the passes; 3x300: rows cut into segments of 124 with a
+    2-position halo; 13x70 at X = 144, another multiple of 16."""
     from raft_optical_flow_tpu_torch.kernels import gru_fused as gf
 
-    h, x, weights = _gru_case(cuda, B, H, W, dtype, seed=H * W)
+    h, x, weights = _gru_case(cuda, B, H, W, dtype, seed=H * W + X, X=X)
     gf.reset_launches()
     for axis, part in ((2, weights[:6]), (1, weights[6:])):
         w, b = gf.pass_weights(part, dtype)

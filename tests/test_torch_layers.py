@@ -21,6 +21,7 @@ from raft_optical_flow_tpu.models.extractor import SmallEncoder as JSmall
 from raft_optical_flow_tpu_torch.models import layers as tl
 from raft_optical_flow_tpu_torch.models.extractor import BasicEncoder, SmallEncoder
 from raft_optical_flow_tpu_torch.utils.weights import flax_to_state_dict, load_flax_npz
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 

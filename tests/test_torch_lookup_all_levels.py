@@ -19,20 +19,10 @@ from raft_optical_flow_tpu.kernels.corr_lookup import corr_pyramid_lookup_pallas
 from raft_optical_flow_tpu.ops import corr as jcorr
 from raft_optical_flow_tpu_torch.kernels import corr_lookup as ck
 from raft_optical_flow_tpu_torch.ops import corr as tcorr
+from torch_threads import one_torch_thread  # noqa: F401
 
 # one compiled program per case instead of an eager dispatch per op
 _jax_lookup = jax.jit(corr_pyramid_lookup_pallas_fused, static_argnums=2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for these small CPU shapes: under the suite's
-    six workers, torch's default of one thread per core oversubscribes the
-    cores and these tests run 10-40x slower."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _case(seed, H, W, B=2, C=32, max_disp=6.0):

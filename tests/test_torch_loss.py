@@ -32,6 +32,7 @@ from raft_optical_flow_tpu_torch.train.trainer import (
     linear_onecycle_schedule,
     make_optimizer,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rel(a, b):

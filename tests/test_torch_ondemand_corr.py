@@ -24,6 +24,7 @@ from raft_optical_flow_tpu.kernels.corr_ondemand import _ondemand_xla, ondemand_
 from raft_optical_flow_tpu.ops.corr import avg_pool2x2
 from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
 from raft_optical_flow_tpu_torch.ops.corr import build_corr_pyramid_from_fmaps, corr_pyramid_lookup
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -27,6 +27,7 @@ from raft_optical_flow_tpu.utils.torch_convert import load_flax_checkpoint as ja
 from raft_optical_flow_tpu_torch.losses import sequence_loss
 from raft_optical_flow_tpu_torch.models import RAFT, RAFTConfig
 from raft_optical_flow_tpu_torch.utils.weights import flax_to_state_dict, state_dict_to_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 GOLDEN = os.path.join(REPO, "tests", "goldens", "raft_small.npz")

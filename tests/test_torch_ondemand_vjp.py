@@ -18,6 +18,7 @@ import torch
 from raft_optical_flow_tpu.kernels.corr_ondemand import _ondemand_xla, ondemand_corr_pyramid
 from raft_optical_flow_tpu.ops.corr import avg_pool2x2
 from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _inputs(seed, B=2, H=10, W=12, C=16, levels=3):

@@ -26,6 +26,7 @@ from raft_optical_flow_tpu.utils.torch_convert import load_flax_checkpoint as ja
 from raft_optical_flow_tpu_torch.kernels import corr_lookup as ck
 from raft_optical_flow_tpu_torch.models import RAFT, RAFTConfig
 from raft_optical_flow_tpu_torch.utils.weights import flax_to_state_dict, load_flax_npz
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 GOLDEN = os.path.join(REPO, "tests", "goldens", "raft_small.npz")
@@ -152,7 +153,7 @@ def test_zero_iterations_standard():
         (RAFTConfig(fused_gru=True, alternate_corr=True), {}),
     ],
 )
-def test_unported_paths_raise(golden, config, kwargs):
+def test_fused_paths_match_unfused(golden, config, kwargs):
     """These `fused_gru` configurations were refused until the fused GRU was
     ported; each now runs and matches its unfused counterpart at the same
     weights (RAFT-small ignores the flag: bit for bit; RAFT-standard fp32:

@@ -22,6 +22,7 @@ import torch
 
 from raft_optical_flow_tpu.ops import grid as jgrid
 from raft_optical_flow_tpu_torch.ops import grid as tgrid
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _gather_resize_axis(x, out_size, axis):

@@ -27,6 +27,7 @@ from raft_optical_flow_tpu_torch.models import RAFT, RAFTConfig
 from raft_optical_flow_tpu_torch.models.extractor import BasicEncoder
 from raft_optical_flow_tpu_torch.models.layers import Norm, batch_norm_train, channel_dropout
 from raft_optical_flow_tpu_torch.utils.weights import flax_to_state_dict, state_dict_to_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _flat(tree, prefix=()):

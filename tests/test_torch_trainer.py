@@ -43,6 +43,7 @@ from raft_optical_flow_tpu_torch.utils.checkpoint import (
     latest_tag,
 )
 from raft_optical_flow_tpu_torch.utils.weights import state_dict_to_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

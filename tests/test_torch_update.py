@@ -14,6 +14,7 @@ import torch
 from raft_optical_flow_tpu.models import update as jup
 from raft_optical_flow_tpu_torch.models import update as tup
 from raft_optical_flow_tpu_torch.utils.weights import flax_to_state_dict
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _nchw(x):

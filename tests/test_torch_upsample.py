@@ -16,6 +16,7 @@ from raft_optical_flow_tpu.ops import upsample as jup
 from raft_optical_flow_tpu_torch.ops import grid as tgrid
 from raft_optical_flow_tpu_torch.ops import padding as tpad
 from raft_optical_flow_tpu_torch.ops import upsample as tup
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

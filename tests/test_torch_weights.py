@@ -22,6 +22,7 @@ from raft_optical_flow_tpu_torch.utils.weights import (
     load_flax_checkpoint,
     load_flax_npz,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 CKPT = os.path.join(REPO, "checkpoints", "raft_small.npz")
