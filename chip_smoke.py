@@ -38,10 +38,12 @@ code is not 0):
             algorithms): every layer's gradient must agree bit for bit;
   ondemand  the on-demand correlation (`alternate_corr`): K4
             (corr_ondemand_fwd), K5 (corr_ondemand_bwd_df1) and K6
-            (corr_ondemand_bwd_df2) against their plain versions at the
-            batch-16 serving shapes, the batch-4 bf16 and batch-10 fp32
-            training shapes, radius 3 and 4, far out-of-bounds coords and an
-            empty deepest level, K6 twice bit for bit; RAFT-standard bf16 at
+            (corr_ondemand_bwd_df2, with its prepass corr_ondemand_df2_plan)
+            against their plain versions at the batch-16 serving shapes, the
+            batch-4 bf16 and batch-10 fp32 training shapes, radius 3 and 4,
+            far out-of-bounds coords and an empty deepest level, K6 twice bit
+            for bit, the prepass equal to its plain version, and the routes
+            K4's bf16 tiles took; RAFT-standard bf16 at
             1024x440, 32 iterations: batch 16 against the materialized kernel
             path (pairs/s, peak memory of both), batch 1 against the plain
             on-demand path; RAFT-small fp32 against the golden; one RAFT-small
@@ -68,7 +70,12 @@ code is not 0):
             of the operands' type, whichever is larger. Every kernel is
             timed in an eager loop; K3, about as short as its wrapper's host
             time, is also timed as CUDA-graph replays (with its yardsticks
-            and its four levels of one iteration: the graph_* keys). K7's
+            and its four levels of one iteration: the graph_* keys). K4 and
+            K6 are also timed on a smooth field (grid + a bilinear 4x8 field
+            of +-8 px: the ms_smooth key), with the routes K4's tiles took on
+            both inputs; K6's time is its wrapper's whole call, prepass
+            included, and the prepass has a row of its own (both also as
+            CUDA-graph replays: graph_ms). K7's
             yardstick is the unfused SepConvGRU pass (three cuDNN convs and
             their elementwise work); its row also gives the fp32 variant's
             time at the training shape, and its log line the weight bytes
@@ -182,6 +189,17 @@ def serving_coords(B, h, w, seed, max_disp=8.0):
     return (coords_grid(B, h, w, device="cuda") + d).contiguous()
 
 
+def smooth_coords(B, h, w, seed, max_disp=8.0):
+    """The grid plus a smooth field, as RAFT's flow is: a 4x8 grid of
+    displacements uniform in +-max_disp, resized bilinearly to h x w."""
+    from raft_optical_flow_tpu_torch.ops.grid import coords_grid
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d = (torch.rand(B, 2, 4, 8, device="cuda", generator=g) * 2 - 1) * max_disp
+    d = F.interpolate(d, size=(h, w), mode="bilinear", align_corners=True).permute(0, 2, 3, 1)
+    return (coords_grid(B, h, w, device="cuda") + d).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # phases
 
@@ -203,9 +221,12 @@ def phase_device(state):
     lib = _build.build()
     _build.load()
     secs = time.perf_counter() - t0
+    entry = ""
     for line in _build.build_log.splitlines():
+        if "Compiling entry function" in line:  # the kernel the next lines are about
+            entry = line.split("'")[1] if "'" in line else ""
         if any(k in line for k in ("registers", "spill", "wgmma", "arning")):
-            log(f"  ptxas: {line.strip()}")
+            log(f"  ptxas: {line.strip()}  [{entry[:96]}]")
     built = "built" if _build.build_seconds is not None else "reused"
     log(f"phase device: ok, kernels {built} in {secs:.2f} s ({lib.name})")
 
@@ -717,12 +738,34 @@ def check_rel(name, got, ref, tol=2e-5):
     return rel, d
 
 
+def check_plan(name, coords, shapes, radius):
+    """K6's prepass against its plain version: the same row starts and the
+    same (query, row) pairs (the kernel leaves the rest of each level's
+    entries unwritten). Returns the number of pairs."""
+    from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
+
+    entries, starts = co.corr_ondemand_df2_plan(coords, shapes, radius)
+    ref_e, ref_s = co.corr_ondemand_df2_plan_plain(coords, shapes, radius)
+    same = torch.equal(starts, ref_s)
+    n_pairs = 0
+    for lvl, (h, w) in enumerate(shapes):
+        for b in range(coords.shape[0]):
+            n = int(ref_s[b, lvl, h]) if h > 0 and w > 0 else 0
+            same = same and torch.equal(entries[b, lvl, :n], ref_e[b, lvl, :n])
+            n_pairs += n
+    if not same:
+        raise AssertionError(f"K6 prepass {name}: differs from its plain version")
+    return n_pairs
+
+
 def compare_ondemand(f1, levels, coords, radius, tag, err, rels, far_rows=0, w=0):
-    """K4, K5 and K6 against their plain versions on one set of inputs."""
+    """K4, K5 and K6 (and its prepass) against their plain versions on one
+    set of inputs; returns the routes K4's tiles took."""
     from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
 
     dt = f1.dtype
     out = co.corr_ondemand_fwd(f1, levels, coords, radius, dt)
+    routes = co.corr_ondemand_fwd_routes()
     ref = co.corr_ondemand_fwd_plain(f1, levels, coords, radius, torch.float32)
     err["corr_ondemand_fwd"] = max(err["corr_ondemand_fwd"], check_k4(f"K4 {tag}", out, ref))
     if far_rows and bool(out[:, : far_rows * w].ne(0).any()):
@@ -740,6 +783,7 @@ def compare_ondemand(f1, levels, coords, radius, tag, err, rels, far_rows=0, w=0
         raise AssertionError(f"K5 {tag}: far out-of-bounds queries got a gradient")
     del df1
     shapes = [tuple(f.shape[1:3]) for f in levels]
+    check_plan(tag, coords, shapes, radius)
     df2 = co.corr_ondemand_bwd_df2(f1, coords, g, shapes, radius)
     again = co.corr_ondemand_bwd_df2(f1, coords, g, shapes, radius)
     if not all(torch.equal(a, b) for a, b in zip(df2, again)):
@@ -753,6 +797,7 @@ def compare_ondemand(f1, levels, coords, radius, tag, err, rels, far_rows=0, w=0
         err["corr_ondemand_bwd_df2"] = max(err["corr_ondemand_bwd_df2"], d)
         rels["corr_ondemand_bwd_df2"] = max(rels["corr_ondemand_bwd_df2"], rel)
     torch.cuda.synchronize()
+    return routes
 
 
 def _ondemand_kernel_checks(state):
@@ -772,8 +817,10 @@ def _ondemand_kernel_checks(state):
         coords[:, :2] += 1.0e6
         coords[:, 2:4] -= 1.0e6
         coords[:, 4:6, :, 0] = w + radius - 0.5
-        compare_ondemand(f1, levels, coords.reshape(B, h * w, 2).contiguous(), radius,
-                         f"serve B={B} C={C} r={radius} {dt}", err, rels, far_rows=4, w=w)
+        routes = compare_ondemand(f1, levels, coords.reshape(B, h * w, 2).contiguous(), radius,
+                                  f"serve B={B} C={C} r={radius} {dt}", err, rels, far_rows=4,
+                                  w=w)
+        log(f"  K4 routes, serve B={B} C={C} r={radius} {dt}: {routes}")
         n += 1
         del f1, levels, coords
         torch.cuda.empty_cache()
@@ -784,7 +831,8 @@ def _ondemand_kernel_checks(state):
         f1, levels = ondemand_inputs(B, th, tw, dt, seed=80 + B)
         assert [tuple(f.shape[1:3]) for f in levels] == [(46, 62), (23, 31), (11, 15), (5, 7)]
         coords = serving_coords(B, th, tw, seed=81 + B).reshape(B, th * tw, 2).contiguous()
-        compare_ondemand(f1, levels, coords, 4, f"train B={B} {dt}", err, rels)
+        routes = compare_ondemand(f1, levels, coords, 4, f"train B={B} {dt}", err, rels)
+        log(f"  K4 routes, train B={B} {dt}: {routes}")
         n += 1
         del f1, levels, coords
         torch.cuda.empty_cache()
@@ -801,7 +849,8 @@ def _ondemand_kernel_checks(state):
     log(f"ondemand kernels: max_abs_err {err!r} max_rel K5 "
         f"{rels['corr_ondemand_bwd_df1']!r} K6 {rels['corr_ondemand_bwd_df2']!r} over {n} "
         f"input sets (gates: K4 fp32 max_rel 2e-5, bf16 one bf16 step + 2e-5*max|ref|; "
-        f"K5, K6 max_rel 2e-5; K6 twice bit for bit) launches={dict(co.LAUNCHES)}")
+        f"K5, K6 max_rel 2e-5; K6 twice bit for bit; prepass equal) "
+        f"launches={dict(co.LAUNCHES)}")
 
 
 def _ondemand_serving(state):
@@ -923,7 +972,7 @@ def _ondemand_train(state):
     }
     cfg = RAFTConfig(small=True, alternate_corr=True)
     expect = {"corr_ondemand_fwd": iters, "corr_ondemand_bwd_df1": iters,
-              "corr_ondemand_bwd_df2": iters}
+              "corr_ondemand_bwd_df2": iters, "corr_ondemand_df2_plan": iters}
     with deterministic(algorithms=True):
         loss_k, grads_k = _small_step(cfg, stage, ckpt, batch, iters, expect)
         loss_p, grads_p = _small_step(dataclasses.replace(cfg, corr_impl="plain"), stage, ckpt,
@@ -958,7 +1007,8 @@ def _ondemand_train(state):
         st = create_train_state(RAFTConfig(compute_dtype=torch.bfloat16, alternate_corr=True,
                                            remat=remat), stage, device="cuda")
         per_step = {"corr_ondemand_fwd": TRAIN_ITERS * (2 if remat else 1),
-                    "corr_ondemand_bwd_df1": TRAIN_ITERS, "corr_ondemand_bwd_df2": TRAIN_ITERS}
+                    "corr_ondemand_bwd_df1": TRAIN_ITERS, "corr_ondemand_bwd_df2": TRAIN_ITERS,
+                    "corr_ondemand_df2_plan": TRAIN_ITERS}
         _timed_steps(st, batch, 1, per_step, iters=TRAIN_ITERS, freeze_bn=True)  # warm-up
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1441,9 +1491,11 @@ def _timing_row(name, fn, plain_fn, lib_fn, nbytes, n_ops, dtype, detail):
 
 
 def _time_ondemand(rows):
-    """K4 at the batch-16 serving shape, K5 and K6 at the batch-4 training
-    shape, bf16 operands and cotangents, r = 4, C = 256; each first held
-    against its plain version on the very inputs it is timed on."""
+    """K4 at the batch-16 serving shape, K5 and K6 (and K6's prepass) at the
+    batch-4 training shape, bf16 operands and cotangents, r = 4, C = 256;
+    each first held against its plain version on the very inputs it is
+    timed on. K4 and K6 are timed again on a smooth field (ms_smooth), and
+    K4's rows carry the routes its tiles took on both inputs."""
     from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
 
     dt, radius = torch.bfloat16, 4
@@ -1452,9 +1504,15 @@ def _time_ondemand(rows):
     B, C = 16, 256
     f1, levels = ondemand_inputs(B, h, w, dt, seed=25)
     coords = serving_coords(B, h, w, seed=26).reshape(B, h * w, 2).contiguous()
+    smooth = smooth_coords(B, h, w, seed=30).reshape(B, h * w, 2).contiguous()
     fn = lambda: co.corr_ondemand_fwd(f1, levels, coords, radius, dt)
     plain_fn = lambda: co.corr_ondemand_fwd_plain(f1, levels, coords, radius, dt)
     check_k4("K4 timed inputs", fn(), co.corr_ondemand_fwd_plain(f1, levels, coords, radius))
+    routes = co.corr_ondemand_fwd_routes()
+    smooth_fn = lambda: co.corr_ondemand_fwd(f1, levels, smooth, radius, dt)
+    check_k4("K4 smooth inputs", smooth_fn(),
+             co.corr_ondemand_fwd_plain(f1, levels, smooth, radius))
+    routes_smooth = co.corr_ondemand_fwd_routes()
     lib_fwd, *_ = _ondemand_library(f1, levels, coords, radius)
     lib_fn = lambda: lib_fwd().detach()
     Q = h * w
@@ -1462,10 +1520,14 @@ def _time_ondemand(rows):
     nbytes = (f1.numel() * 2 + sum(f.numel() for f in levels) * 2 + B * Q * 8
               + B * Q * len(levels) * K2 * 2)
     n_ops = taps * C * 2 + B * Q * len(levels) * K2 * 9  # the dots, then 9 ops per window value
-    rows["corr_ondemand_fwd"] = _timing_row(
+    row = _timing_row(
         "corr_ondemand_fwd", fn, plain_fn, lib_fn, nbytes, n_ops, dt,
         f"B={B} Q={Q} C={C} r={radius} bf16 levels 55x128..6x16, {taps:.0f} in-bounds taps;")
-    del f1, levels, coords, lib_fwd
+    row.update(ms_smooth=cuda_ms(smooth_fn, 20), routes=routes, routes_smooth=routes_smooth)
+    rows["corr_ondemand_fwd"] = row
+    log(f"timing corr_ondemand_fwd on a smooth field: {row['ms_smooth']:.4f} ms; routes of its "
+        f"tiles (tile, level): timed inputs {routes}, smooth field {routes_smooth}")
+    del f1, levels, coords, smooth, lib_fwd
     torch.cuda.empty_cache()
 
     B = 4
@@ -1475,13 +1537,17 @@ def _time_ondemand(rows):
     coords = serving_coords(B, h, w, seed=28).reshape(B, Q, 2).contiguous()
     gen = torch.Generator(device="cuda").manual_seed(29)
     g = torch.randn(B, Q, len(levels) * K2, device="cuda", generator=gen).to(dt)
+    smooth = smooth_coords(B, h, w, seed=32).reshape(B, Q, 2).contiguous()
     shapes = [tuple(f.shape[1:3]) for f in levels]
     check_rel("K5 timed inputs", co.corr_ondemand_bwd_df1(levels, coords, g, radius),
               co.corr_ondemand_bwd_df1_plain(levels, coords, g, radius))
-    for lvl, (a, b) in enumerate(zip(co.corr_ondemand_bwd_df2(f1, coords, g, shapes, radius),
-                                     co.corr_ondemand_bwd_df2_plain(f1, coords, g, shapes,
-                                                                    radius))):
-        check_rel(f"K6 timed inputs l{lvl}", a, b)
+    n_pairs = {}
+    for tag, c in (("timed", coords), ("smooth", smooth)):
+        n_pairs[tag] = check_plan(f"{tag} inputs", c, shapes, radius)
+        for lvl, (a, b) in enumerate(zip(co.corr_ondemand_bwd_df2(f1, c, g, shapes, radius),
+                                         co.corr_ondemand_bwd_df2_plain(f1, c, g, shapes,
+                                                                        radius))):
+            check_rel(f"K6 {tag} inputs l{lvl}", a, b)
     lib_fwd, f1_leaf, img_leaves = _ondemand_library(f1, levels, coords, radius)
     out = lib_fwd()
     taps = _ondemand_taps(levels, coords, radius)
@@ -1493,12 +1559,45 @@ def _time_ondemand(rows):
         lambda: co.corr_ondemand_bwd_df1_plain(levels, coords, g, radius),
         lambda: torch.autograd.grad(out, [f1_leaf], g, retain_graph=True),
         common + sum(f.numel() for f in levels) * 2 + B * Q * C * 4, n_ops, dt, detail)
-    rows["corr_ondemand_bwd_df2"] = _timing_row(
-        "corr_ondemand_bwd_df2", lambda: co.corr_ondemand_bwd_df2(f1, coords, g, shapes, radius),
+    row = _timing_row(
+        "corr_ondemand_bwd_df2 (the wrapper: prepass and K6)",
+        lambda: co.corr_ondemand_bwd_df2(f1, coords, g, shapes, radius),
         lambda: co.corr_ondemand_bwd_df2_plain(f1, coords, g, shapes, radius),
         lambda: torch.autograd.grad(out, img_leaves, g, retain_graph=True),
         common + f1.numel() * 2 + sum(f.numel() for f in levels) * 4, n_ops, dt, detail)
+    row["ms_smooth"] = cuda_ms(lambda: co.corr_ondemand_bwd_df2(f1, smooth, g, shapes, radius), 20)
+    # as CUDA-graph replays too: the device's time without the wrappers' host time
+    row["graph_ms"] = graph_ms(lambda: co.corr_ondemand_bwd_df2(f1, coords, g, shapes, radius), 10)
+    rows["corr_ondemand_bwd_df2"] = row
+    log(f"timing corr_ondemand_bwd_df2 on a smooth field: {row['ms_smooth']:.4f} ms; as CUDA-graph "
+        f"replays (timed inputs): {row['graph_ms']:.4f} ms")
     del out
+    # K6's prepass alone: bytes are coords read once, the (query, row) pairs
+    # (16 bytes each) and the row starts written once; about 20 fp32
+    # operations per query and level (two passes of the taps); library
+    # yardstick: one torch.sort of the pairs' (row, query) keys
+    _, starts = co.corr_ondemand_df2_plan(coords, shapes, radius)
+    nt = 2 * radius + 2
+    keys = []
+    for lvl, (hl, wl) in enumerate(shapes):
+        f = torch.floor(coords * 2.0**-lvl)
+        tx = f[..., 0].clamp(-(radius + 2), wl + radius).long() - radius
+        ys = (f[..., 1].clamp(-(radius + 2), hl + radius).long() - radius)[..., None] + \
+            torch.arange(nt, device="cuda")
+        ok = (ys >= 0) & (ys < hl) & ((tx + nt - 1 >= 0) & (tx < wl))[..., None]
+        q = torch.arange(Q, device="cuda")[:, None]
+        keys.append(torch.where(ok, ys * Q + q, hl * Q).reshape(B, -1))
+    keys = torch.stack(keys, dim=1)
+    rows["corr_ondemand_df2_plan"] = _timing_row(
+        "corr_ondemand_df2_plan", lambda: co.corr_ondemand_df2_plan(coords, shapes, radius),
+        lambda: co.corr_ondemand_df2_plan_plain(coords, shapes, radius),
+        lambda: torch.sort(keys, dim=-1),
+        B * Q * 8 + n_pairs["timed"] * 16 + starts.numel() * 4, 20 * B * Q * len(shapes),
+        torch.float32, f"B={B} Q={Q} r={radius} levels 46x62..5x7, {n_pairs['timed']} (query, "
+        f"row) pairs, library = torch.sort of the pairs' keys alone;")
+    plan = rows["corr_ondemand_df2_plan"]
+    plan["graph_ms"] = graph_ms(lambda: co.corr_ondemand_df2_plan(coords, shapes, radius), 10)
+    log(f"timing corr_ondemand_df2_plan as CUDA-graph replays: {plan['graph_ms']:.4f} ms")
 
 
 def _time_k7():
@@ -1685,10 +1784,10 @@ def main() -> int:
         # training path, per bf16 batch-4 step
         "corr_lookup_level_bwd": state["train"]["bf16_bs4"]["launches"]["corr_lookup_level_bwd"],
     }
-    # on-demand: K4 per batch-16 serving forward, K5 and K6 per bf16 batch-4
-    # training step (remat off)
+    # on-demand: K4 per batch-16 serving forward, K5, K6 and K6's prepass per
+    # bf16 batch-4 training step (remat off)
     launches["corr_ondemand_fwd"] = state["ondemand_serving"][16]["launches"]["corr_ondemand_fwd"]
-    for name in ("corr_ondemand_bwd_df1", "corr_ondemand_bwd_df2"):
+    for name in ("corr_ondemand_bwd_df1", "corr_ondemand_bwd_df2", "corr_ondemand_df2_plan"):
         launches[name] = state["ondemand_train"]["bf16_bs4"]["launches"][name]
     # K7 per fused batch-16 serving forward; K8 over its public entry's call
     # (phase kernels): no model path launches it
@@ -1702,7 +1801,8 @@ def main() -> int:
         ("corr_lookup_level", K1_SRC, K1_TPU), ("corr_lookup_coarse_fused", K1_SRC, K2_TPU),
         ("corr_lookup_level_bwd", K1_SRC, K3_TPU), ("corr_ondemand_fwd", K4_SRC, K4_TPU),
         ("corr_ondemand_bwd_df1", K4_SRC, K5_TPU), ("corr_ondemand_bwd_df2", K4_SRC, K6_TPU),
-        ("sepconv_gru_pass", K7_SRC, K7_TPU), ("corr_lookup_all_levels", K1_SRC, K8_TPU),
+        ("corr_ondemand_df2_plan", K4_SRC, K6_TPU), ("sepconv_gru_pass", K7_SRC, K7_TPU),
+        ("corr_lookup_all_levels", K1_SRC, K8_TPU),
     ):
         t = state["timing"][name]
         if launches[name] <= 0:
@@ -1716,6 +1816,11 @@ def main() -> int:
     kernels[-1]["note"] = ("no model path launches it (as in the JAX package); launches "
                            "counted over one call of its public entry")
     by_name = {k["name"]: k for k in kernels}
+    by_name["corr_ondemand_df2_plan"]["note"] = "K6's prepass (part of K6's port)"
+    for name, keys in (("corr_ondemand_fwd", ("ms_smooth", "routes", "routes_smooth")),
+                       ("corr_ondemand_bwd_df2", ("ms_smooth", "graph_ms")),
+                       ("corr_ondemand_df2_plan", ("graph_ms",))):
+        by_name[name].update({k: state["timing"][name][k] for k in keys})
     k3 = state["timing"]["corr_lookup_level_bwd"]
     by_name["corr_lookup_level_bwd"].update(
         {k: k3[k] for k in ("all_levels_ms", "graph_ms", "graph_plain_ms", "graph_library_ms",

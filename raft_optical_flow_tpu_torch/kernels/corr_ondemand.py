@@ -18,7 +18,9 @@ HW x HW volume. Three CUDA kernels (`csrc/corr_ondemand.cu`, built by
     `_bwd_df1_kernel`, `_bwd_df1_stream_kernel`);
   - K6 `corr_ondemand_bwd_df2`: the gradient of every fmap2 level, summed
     over queries in a fixed order, no atomics (replaces `_bwd_df2_kernel`,
-    `_bwd_df2_stream_kernel`).
+    `_bwd_df2_stream_kernel`). Its wrapper first launches the prepass
+    `corr_ondemand_df2_plan`, which lists for each fmap2 row the queries
+    whose taps cover it, so that a block of K6 reads only those.
 
 `OndemandCorr` is the autograd Function (forward K4, backward K5 and K6; no
 coords gradient, as the JAX package returns zeros). For a CUDA tensor each
@@ -26,7 +28,9 @@ wrapper launches its kernel or raises; for a CPU tensor it runs its plain
 version, the blockwise formulation of the JAX package's `_ondemand` (query
 tiles of 128, two separable tri-selector products per tile and level),
 which is also the kernels' oracle and keeps memory at O(128 * Hl * Wl).
-Each wrapper counts its launches in `LAUNCHES`.
+Each wrapper counts its launches in `LAUNCHES`. K4's bf16 kernel works on
+tiles of 4x16 neighbouring queries; `corr_ondemand_fwd_routes` reports
+which of its two routes each (tile, level) of the last launch took.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from raft_optical_flow_tpu_torch.kernels import _build
 # launches of each kernel since the last reset_launches(); plain runs do not count
 LAUNCHES: Dict[str, int] = {
     "corr_ondemand_fwd": 0, "corr_ondemand_bwd_df1": 0, "corr_ondemand_bwd_df2": 0,
+    "corr_ondemand_df2_plan": 0,
 }
 
 QT = 128  # query tile of the plain version (the JAX package's XLA default)
@@ -60,13 +65,18 @@ def _kernels() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load()
-        P, I = ctypes.c_void_p, ctypes.c_int
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.raft_corr_ondemand_fwd.argtypes = [P, P, P, P, I, P, P, I, I, I, I, I, I, P]
         lib.raft_corr_ondemand_fwd.restype = I
         lib.raft_corr_ondemand_bwd_df1.argtypes = [P, P, P, I, P, P, P, I, I, I, I, I, I, P]
         lib.raft_corr_ondemand_bwd_df1.restype = I
-        lib.raft_corr_ondemand_bwd_df2.argtypes = [P, P, P, I, P, P, P, I, I, I, I, I, I, P]
+        lib.raft_corr_ondemand_bwd_df2.argtypes = [P, P, P, I, P, LL, P, I, P, P, I, I, I, I,
+                                                   I, I, P]
         lib.raft_corr_ondemand_bwd_df2.restype = I
+        lib.raft_corr_ondemand_df2_plan.argtypes = [P, P, P, I, I, I, I, P, LL, P, I, P]
+        lib.raft_corr_ondemand_df2_plan.restype = I
+        lib.raft_corr_ondemand_fwd_routes.argtypes = [P]
+        lib.raft_corr_ondemand_fwd_routes.restype = I
         _lib = lib
     return _lib
 
@@ -125,6 +135,11 @@ def _level_arrays(tensors: Sequence[torch.Tensor]):
     hs = (ctypes.c_int * n)(*[t.shape[1] for t in tensors])
     ws = (ctypes.c_int * n)(*[t.shape[2] for t in tensors])
     return ptrs, hs, ws
+
+
+def _check_shapes(shapes: Sequence[Tuple[int, int]]) -> None:
+    if not 1 <= len(shapes) <= MAX_LEVELS or any(h < 0 or w < 0 for h, w in shapes):
+        raise ValueError(f"1..{MAX_LEVELS} level shapes >= 0, got {list(shapes)}")
 
 
 # ---------------------------------------------------------------------------
@@ -208,6 +223,59 @@ def corr_ondemand_bwd_df2_plain(f1: torch.Tensor, coords: torch.Tensor, g: torch
     for q0, lvl, d_rows in _drows_tiles(coords, g, shapes, radius, C):
         df2s[lvl] += torch.einsum("bqhw,bqc->bhwc", d_rows, f1[:, q0:q0 + QT])
     return df2s
+
+
+def plan_stride(shapes: Sequence[Tuple[int, int]]) -> int:
+    """Length of a level's row of `starts` in K6's plan: the tallest
+    non-empty level's rows and the total."""
+    return max([h + 1 for h, w in shapes if h > 0 and w > 0], default=1)
+
+
+def corr_ondemand_df2_plan_plain(coords: torch.Tensor, shapes: Sequence[Tuple[int, int]],
+                                 radius: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K6's prepass: for each level and fmap2 row y, the
+    queries whose taps cover row y, in ascending query order.
+
+    coords [B, Q, 2] fp32 level-0. With the first tap (t_x, t_y) =
+    clamp(floor(coords / 2^l), -(r+2), (Wl, Hl) + r) - r and fx, fy =
+    coords / 2^l - floor(coords / 2^l), a query covers row y when t_y <= y <=
+    t_y + 2r + 1, 0 <= y < Hl, and a tap column t_x .. t_x + 2r + 1 lies in
+    [0, Wl). Returns entries [B, L, Q*(2r+2), 4] int32: the (query, row)
+    pairs sorted by row, then query, each {q, t_y * 65536 + (t_x mod 65536),
+    fx bits, fy bits}, zeros after the last pair; and starts [B, L,
+    plan_stride] int32: starts[y] the first pair of row y, the number of
+    pairs from y = Hl on (0 for a level with an empty side).
+    """
+    B, Q, _ = coords.shape
+    L, R, NT = len(shapes), radius, 2 * radius + 2
+    dev = coords.device
+    entries = torch.zeros(B, L, Q * NT, 4, dtype=torch.int32, device=dev)
+    starts = torch.zeros(B, L, plan_stride(shapes), dtype=torch.int32, device=dev)
+    q = torch.arange(Q, device=dev)
+    for lvl, (Hl, Wl) in enumerate(shapes):
+        if Hl <= 0 or Wl <= 0:
+            continue
+        c = coords.float() * (2.0 ** -lvl)  # exact: a power of two
+        f = torch.floor(c)
+        frac = (c - f).contiguous().view(torch.int32).long()
+        tx = f[..., 0].clamp(-(R + 2), Wl + R).long() - R
+        ty = f[..., 1].clamp(-(R + 2), Hl + R).long() - R
+        ys = ty[..., None] + torch.arange(NT, device=dev)  # [B, Q, NT]
+        cols = (tx + NT - 1 >= 0) & (tx < Wl)
+        ok = (ys >= 0) & (ys < Hl) & cols[..., None]
+        key = torch.where(ok, ys * Q + q[:, None], Hl * Q).reshape(B, -1)
+        sk, order = torch.sort(key, dim=1)  # unique keys below Hl * Q: rows, then queries
+        qs = order // NT
+        packed = ty * 65536 + torch.remainder(tx, 65536)
+        take = lambda v: torch.gather(v, 1, qs)  # noqa: E731
+        n = ok.reshape(B, -1).sum(1)
+        valid = torch.arange(Q * NT, device=dev)[None] < n[:, None]
+        pairs = torch.stack([qs, take(packed), take(frac[..., 0]), take(frac[..., 1])], -1)
+        entries[:, lvl] = torch.where(valid[..., None], pairs, 0).to(torch.int32)
+        rows = torch.arange(starts.shape[2], device=dev)
+        starts[:, lvl] = torch.searchsorted(sk, (rows * Q)[None].expand(B, -1).contiguous()
+                                            ).clamp(max=n[:, None]).to(torch.int32)
+    return entries, starts
 
 
 # ---------------------------------------------------------------------------
@@ -303,8 +371,7 @@ def corr_ondemand_bwd_df2(f1: torch.Tensor, coords: torch.Tensor, g: torch.Tenso
         raise TypeError(f"f1 must be float32 or bfloat16, got {f1.dtype}")
     if f1.device != coords.device or not f1.is_contiguous():
         raise ValueError("f1 must be contiguous and on the coords' device")
-    if not 1 <= len(shapes) <= MAX_LEVELS or any(h < 0 or w < 0 for h, w in shapes):
-        raise ValueError(f"1..{MAX_LEVELS} level shapes >= 0, got {list(shapes)}")
+    _check_shapes(shapes)
     _check_g(g, B, Q, len(shapes) * (2 * radius + 1) ** 2, coords.device)
     if not coords.is_cuda:
         return corr_ondemand_bwd_df2_plain(f1, coords, g, shapes, radius)
@@ -317,18 +384,66 @@ def corr_ondemand_bwd_df2(f1: torch.Tensor, coords: torch.Tensor, g: torch.Tenso
         return df2s
     if all(d.numel() == 0 for d in df2s):
         return df2s
+    entries, starts = corr_ondemand_df2_plan(coords, shapes, radius)
     ptrs, hs, ws = _level_arrays(df2s)
     lib = _kernels()
     with torch.cuda.device(f1.device):
         err = lib.raft_corr_ondemand_bwd_df2(
             ctypes.addressof(ptrs), ctypes.addressof(hs), ctypes.addressof(ws), len(df2s),
-            coords.data_ptr(), g.data_ptr(), f1.data_ptr(), B, Q, C, radius,
-            _DTYPE_CODE[f1.dtype], _DTYPE_CODE[g.dtype],
-            torch.cuda.current_stream().cuda_stream,
+            entries.data_ptr(), entries.shape[2], starts.data_ptr(), starts.shape[2],
+            g.data_ptr(), f1.data_ptr(), B, Q, C, radius, _DTYPE_CODE[f1.dtype],
+            _DTYPE_CODE[g.dtype], torch.cuda.current_stream().cuda_stream,
         )
     _check(err, "corr_ondemand_bwd_df2")
     LAUNCHES["corr_ondemand_bwd_df2"] += 1
     return df2s
+
+
+def corr_ondemand_df2_plan(coords: torch.Tensor, shapes: Sequence[Tuple[int, int]],
+                           radius: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6's prepass in one launch (a block per level and batch element).
+
+    coords [B, Q, 2] fp32 level-0, contiguous; shapes (Hl, Wl) per level.
+    Returns (entries, starts) as `corr_ondemand_df2_plan_plain` defines
+    them, except that entries past a level's last pair are not written.
+    Deterministic: integers and exact fp32 values only.
+    """
+    B, Q, _ = coords.shape
+    _check_coords(coords, B, Q, radius)
+    _check_shapes(shapes)
+    if not coords.is_cuda:
+        return corr_ondemand_df2_plan_plain(coords, shapes, radius)
+    if radius not in KERNEL_RADII:
+        raise ValueError(f"the CUDA kernels take radius in {KERNEL_RADII}, got {radius}")
+    entries = torch.empty(B, len(shapes), Q * (2 * radius + 2), 4, dtype=torch.int32,
+                          device=coords.device)
+    starts = torch.empty(B, len(shapes), plan_stride(shapes), dtype=torch.int32,
+                         device=coords.device)
+    if B * Q == 0:
+        return entries, starts.zero_()
+    hs = (ctypes.c_int * len(shapes))(*[h for h, _ in shapes])
+    ws = (ctypes.c_int * len(shapes))(*[w for _, w in shapes])
+    lib = _kernels()
+    with torch.cuda.device(coords.device):
+        err = lib.raft_corr_ondemand_df2_plan(
+            coords.data_ptr(), ctypes.addressof(hs), ctypes.addressof(ws), len(shapes), B, Q,
+            radius, entries.data_ptr(), entries.shape[2], starts.data_ptr(), starts.shape[2],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _check(err, "corr_ondemand_df2_plan")
+    LAUNCHES["corr_ondemand_df2_plan"] += 1
+    return entries, starts
+
+
+def corr_ondemand_fwd_routes() -> Dict[str, int]:
+    """Routes of the last bf16 K4 launch in this process: (tile, level)
+    pairs that went through the staged tensor-core tiles (`tiled`) or a warp
+    per query (`per_query`), and the tiles recorded (`tiles`, at most 65536;
+    0 after an fp32 launch). Synchronises with the card."""
+    counts = (ctypes.c_longlong * 3)()
+    _check(_kernels().raft_corr_ondemand_fwd_routes(ctypes.addressof(counts)),
+           "corr_ondemand_fwd_routes")
+    return {"tiled": counts[0], "per_query": counts[1], "tiles": counts[2]}
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@
 // raft_optical_flow_tpu/kernels/corr_ondemand_pallas.py:
 //   raft_corr_ondemand_fwd      <- _fwd_level_kernel, _fwd_level_stream_kernel (K4)
 //   raft_corr_ondemand_bwd_df1  <- _bwd_df1_kernel, _bwd_df1_stream_kernel     (K5)
-//   raft_corr_ondemand_bwd_df2  <- _bwd_df2_kernel, _bwd_df2_stream_kernel     (K6)
+//   raft_corr_ondemand_bwd_df2  <- _bwd_df2_kernel, _bwd_df2_stream_kernel     (K6,
+//                                  with its prepass raft_corr_ondemand_df2_plan)
 // The TPU's resident and streaming variants differ only in how a level of
 // fmap2 is cut to fit VMEM; here each pair is one kernel. The TPU's selector
 // matmuls (_tri_kq, _tri_qk), one-hot placement matmuls (_flatten_win,
@@ -35,41 +36,117 @@
 // rounding to the output dtype. Coords stay fp32; level l scales them by the
 // exact 2^-l, as the JAX package's coords / 2**l.
 //
-// Bound on the card. A query reads its (2r+2)^2 taps of C channels at each
-// level: 400 C-long dot products at r = 4 with four levels, against one
-// C-long read of f1 and 324 outputs. At the batch-16 serving shape (bf16,
-// C = 256) the compulsory bytes are about 208 MB, 0.062 ms at 3.35 TB/s,
-// and the products 17 GFLOP: bytes bound the function, but this first
-// version does its products on the CUDA cores (fp32 multiply-adds, about
-// 0.26 ms at 67 TFLOP/s), and it re-reads each query's taps through L1/L2
-// rather than sharing them between neighbouring queries, which is likely
-// what holds it back (it ran at about 1% of the bytes bound on an H100).
-// The tap products as tensor-core tiles (wgmma / mma.sync) over a tile of
-// queries with their taps staged in shared memory are later work. K5 and K6
-// do the same products backwards; K6 also walks each band's queries (see
-// its note).
+// K4, bound on the card and design. A query reads its (2r+2)^2 taps of C
+// channels at each level: 400 C-long dot products at r = 4 with four
+// levels, against one C-long read of f1 and 324 outputs. At the batch-16
+// serving shape (bf16, C = 256) the compulsory bytes are about 208 MB,
+// 0.062 ms at 3.35 TB/s, and the products 17 GFLOP: bytes bound the
+// function. A warp per query that re-reads its own taps through L1/L2 (the
+// fp32 path below) moves about 23 GB of cache traffic per launch there. The
+// bf16 path instead shares taps between neighbouring queries:
+// a block takes a tile of 4 x 16 queries of the query grid (the level-0
+// map's own grid when Q = H0 * W0, as RAFT's coords are; else rows of 16
+// consecutive queries; the tiles decide only the speed, never the result),
+// a warp per row of 16 (the M of mma.sync m16n8k16), and per level stages,
+// row by row, the fmap2 pixels of the box that holds the in-bounds taps of
+// all 64 windows in shared memory (128 channels a unit, cp.async,
+// double-buffered), once per block. Each warp keeps its 16 queries' f1 rows
+// as mma A fragments in registers for the whole launch, and multiplies them
+// with its own columns of each staged row on the tensor cores (bf16 in,
+// fp32 accumulate): 16 queries x 8 pixels a product, so its dots cover the
+// union of its queries' tap columns, and a query whose row or column lies
+// outside that union just takes products it never reads. The dots of a row
+// go through shared memory to the lanes of their query, which blend them in
+// fp32 as above (tap row j, once both rows j-1 and j are in) into a
+// per-warp window tile; the tile is written to device memory once per level
+// with consecutive stores. What bounds it: each staged unit is a trip to L2
+// and back (about (16 + 9 + spread) pixels x 256 B; spread is how far the
+// tile's displacements differ) that the block waits for, one unit ahead, so
+// three blocks an SM (168 registers, 67 KB of shared memory each) keep
+// three trips in flight; the products (a few times the useful ones) stay
+// well under the tensor cores' rate.
+// A tile whose box is wider than kMaxBoxW pixels, or taller than kMaxBoxRows
+// rows, or whose warp's columns exceed kMaxWarpCols (coords spread over the
+// whole level, wrapped rows of a very wide map) takes the per-query route
+// for that level inside the kernel: a warp per query, the taps read from
+// device memory and dotted on the CUDA cores, as the fp32 path does. A far
+// out-of-bounds query has no in-bounds tap and adds nothing to the box.
+// Each tile and level records the route it took (g_fwd_route), which
+// raft_corr_ondemand_fwd_routes counts for the last bf16 launch.
+// fp32 operands keep the warp-per-query body on the CUDA cores: the tensor
+// cores would round them to TF32, and the fp32 gate (max_rel 2e-5) and
+// fp32 policy do not allow that.
+// K5 does the products of K4 backwards, a warp per query. K6 sums over
+// queries for each fmap2 pixel after a prepass (see their notes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kWarps = 4;            // K4, K5: one warp per query, 4 per block
-constexpr int kChunk = 32;           // K6: channels per block, one per lane
-constexpr int kMaxBandRows = 8;      // K6: fmap2 rows per block, one per warp
-constexpr int kSmemBudget = 96 * 1024;
-constexpr int kSmemMax = 227 * 1024;
+constexpr int kWarps = 4;            // K4 fp32, K5: one warp per query, 4 per block
 constexpr unsigned kFull = 0xffffffffu;
 
+// K4 bf16 (tiled): 4 warps, each 16 queries of one row of the query grid;
+// staged units of 128 channels
+constexpr int kTileWarps = 4;
+constexpr int kTileCols = 16;               // the mma's M
+constexpr int kUnitC = 128;
+constexpr int kPixBytes = kUnitC * 2 + 64;  // a staged pixel: 2 pixels of a 128-byte
+                                            // LDS.128 phase fall in other banks
+constexpr int kMaxBoxW = 56;                // box columns a unit stages
+constexpr int kMaxBoxRows = 48;             // box rows a tile may walk
+constexpr int kMaxWarpCols = 56;            // columns of one warp's products (7 n-tiles)
+constexpr int kStageBytes = (kMaxBoxW + 8) * kPixBytes;  // + 8: a warp's last n-tile may
+                                                         // reach past the box
+constexpr int kStages = 2;                  // staged units in flight and in use
+constexpr int kSRow = kMaxWarpCols + 4;     // fp32 stride of a warp's dot rows
+constexpr int kMaxKK = 81;                  // (2r+1)^2 at r = 4
+template <typename TO>
+constexpr size_t fwd_smem() {
+  return kStages * (size_t)kStageBytes + (size_t)kTileWarps * 16 * kSRow * 4 +
+         (size_t)kTileWarps * 16 * kMaxKK * sizeof(TO);
+}
+constexpr int kMaxRecordedTiles = 1 << 16;
+
+// K6: 8 warps; a warp sums 4 columns of a row over 32*cpl channels
+constexpr int kDf2Warps = 8;
+constexpr int kDf2Threads = kDf2Warps * 32;
+constexpr int kDf2TargetBlocks = 264;  // two blocks per SM of an H100 at every level
+constexpr int kDf2F1Bytes = 32 * 1024;  // a round's f1 rows in shared memory
+constexpr int kHdW = 16;               // a hit's padded tap cotangents: 3 + (2r + 2) + 3
+constexpr int kPlanWarps = 16;         // prepass: warps per (level, batch element)
+constexpr int kPlanSmem = 48 * 1024;   // its counts: warps x fmap2 rows ints
+
 struct Levels {
-  const void* ptr[kMaxLevels];  // K4, K5: fmap2 levels; K6: df2 levels
+  const void* ptr[kMaxLevels];  // fmap2 levels (K4, K5) or df2 levels (K6)
   int H[kMaxLevels];
   int W[kMaxLevels];
-  int band_start[kMaxLevels + 1];  // K6: first band (block) of each level
   int n;
 };
+
+// K6's launch plan, per level: cg column groups of 4 columns per block
+// times cs channel groups of 32*cpl (a warp each), nseg blocks across a row,
+// ncb channel blocks of cs*32*cpl channels; blocks [block_start[l],
+// block_start[l+1]) of each batch element.
+struct Df2Grid {
+  int cg[kMaxLevels];
+  int cs[kMaxLevels];
+  int nseg[kMaxLevels];
+  int ncb[kMaxLevels];
+  int cpl[kMaxLevels];
+  int block_start[kMaxLevels + 1];
+};
+
+// Route of each (tile, level) of the last bf16 K4 launch: 0 empty level,
+// 1 tiled, 2 per query. Each block writes only its own entries.
+__device__ unsigned char g_fwd_route[kMaxRecordedTiles * kMaxLevels];
+int g_last_tiles = 0;
+int g_last_levels = 0;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -83,13 +160,20 @@ __device__ __forceinline__ void unpack2(uint32_t u, float* v) {
   v[1] = __uint_as_float(u & 0xffff0000u);
 }
 
-// CPL consecutive channels at p (16-byte aligned for CPL = 8 bf16 or 4 fp32).
+// CPL consecutive channels at p (aligned to CPL elements, 16 bytes at most).
 template <int CPL>
 __device__ __forceinline__ void load_vec(const float* p, float* v) {
+  if constexpr (CPL >= 4) {
 #pragma unroll
-  for (int i = 0; i < CPL; i += 4) {
-    const float4 a = *reinterpret_cast<const float4*>(p + i);
-    v[i] = a.x; v[i + 1] = a.y; v[i + 2] = a.z; v[i + 3] = a.w;
+    for (int i = 0; i < CPL; i += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(p + i);
+      v[i] = a.x; v[i + 1] = a.y; v[i + 2] = a.z; v[i + 3] = a.w;
+    }
+  } else if constexpr (CPL == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    v[0] = a.x; v[1] = a.y;
+  } else {
+    v[0] = *p;
   }
 }
 template <int CPL>
@@ -97,10 +181,26 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
   if constexpr (CPL == 8) {
     const uint4 a = *reinterpret_cast<const uint4*>(p);
     unpack2(a.x, v); unpack2(a.y, v + 2); unpack2(a.z, v + 4); unpack2(a.w, v + 6);
-  } else {
-    static_assert(CPL == 4, "4 or 8 channels per lane");
+  } else if constexpr (CPL == 4) {
     const uint2 a = *reinterpret_cast<const uint2*>(p);
     unpack2(a.x, v); unpack2(a.y, v + 2);
+  } else if constexpr (CPL == 2) {
+    unpack2(*reinterpret_cast<const uint32_t*>(p), v);
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
+
+template <int CPL>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  if constexpr (CPL >= 4) {
+#pragma unroll
+    for (int i = 0; i < CPL; i += 4)
+      *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else if constexpr (CPL == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
   }
 }
 
@@ -142,19 +242,65 @@ __device__ __forceinline__ float reduce16(float* p, int lane) {
   return p[0] + __shfl_xor_sync(kFull, p[0], 1);
 }
 
+// One query at one level, a warp per query on the CUDA cores: lane owns
+// channels [lane*CPL, lane*CPL + CPL) of f1 (a1, in registers). For each tap
+// row j the lanes form partial dots of the row's 2r+2 taps, reduce them
+// (reduce16), and lane 2a combines rows j-1 and j into window row c = j-1 at
+// column a, stored at o[a*K + c]. Every window value is stored.
+template <typename T, typename TO, int R, int CPL>
+__device__ __forceinline__ void query_window(const float* a1, const T* __restrict__ f2, int H,
+                                             int W, const Taps& t, TO* o, float inv_sqrt_c,
+                                             int lane) {
+  constexpr int K = 2 * R + 1;
+  constexpr int NT = 2 * R + 2;
+  constexpr int C = 32 * CPL;
+  f2 += lane * CPL;
+  float prev = 0.0f;
+  for (int j = 0; j < NT; ++j) {
+    const int y = t.y + j;
+    float cur = 0.0f;
+    if (y >= 0 && y < H) {  // uniform over the warp
+      float p[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) p[i] = 0.0f;
+      const T* row = f2 + (int64_t)y * W * C;
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        const int x = t.x + i;
+        if (x >= 0 && x < W) {
+          float v[CPL];
+          load_vec<CPL>(row + (int64_t)x * C, v);
+          float acc = 0.0f;
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) acc = fmaf(a1[c], v[c], acc);
+          p[i] = acc;
+        }
+      }
+      cur = reduce16(p, lane);
+    }
+    if (j > 0) {
+      const float prev_n = __shfl_down_sync(kFull, prev, 2);  // tap a+1, row j-1
+      const float cur_n = __shfl_down_sync(kFull, cur, 2);    // tap a+1, row j
+      const float top = (1.0f - t.fx) * prev + t.fx * prev_n;
+      const float bot = (1.0f - t.fx) * cur + t.fx * cur_n;
+      const float v = ((1.0f - t.fy) * top + t.fy * bot) * inv_sqrt_c;
+      const int a = lane >> 1;
+      if (!(lane & 1) && a < K) store_f(o + a * K + (j - 1), v);
+    }
+    prev = cur;
+  }
+}
+
 // ---------------------------------------------------------------------------
-// K4. One warp per query; lane owns channels [lane*CPL, lane*CPL + CPL) of
-// f1 in registers. For each level and tap row j the lanes form partial dots
-// of the row's 2r+2 taps, reduce them (reduce16), and lane 2a combines rows
-// j-1 and j into window row c = j-1 at column a. Writes every output of its
-// query, zeros for an empty level.
+// K4, fp32 operands (and the route of any tile on which the tiled kernel
+// gives up is the same body): one warp per query, 4 per block. Writes every
+// output of its query, zeros for an empty level.
 template <typename T, typename TO, int R, int CPL>
 __global__ void __launch_bounds__(kWarps * 32)
     ondemand_fwd_kernel(const T* __restrict__ f1, Levels lv,
                         const float* __restrict__ coords, TO* __restrict__ out,
                         int64_t bq_total, int Q, float inv_sqrt_c) {
   constexpr int K = 2 * R + 1;
-  constexpr int NT = 2 * R + 2;
   constexpr int C = 32 * CPL;
   const int lane = threadIdx.x & 31;
   const int64_t bq = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -172,41 +318,262 @@ __global__ void __launch_bounds__(kWarps * 32)
       continue;
     }
     const Taps t = query_taps<R>(cx0, cy0, l, H, W);
-    const T* f2 = static_cast<const T*>(lv.ptr[l]) + b * ((int64_t)H * W * C) + lane * CPL;
-    float prev = 0.0f;
-    for (int j = 0; j < NT; ++j) {
-      const int y = t.y + j;
-      float cur = 0.0f;
-      if (y >= 0 && y < H) {  // uniform over the warp
-        float p[16];
+    const T* f2 = static_cast<const T*>(lv.ptr[l]) + b * ((int64_t)H * W * C);
+    query_window<T, TO, R, CPL>(a1, f2, H, W, t, ol, inv_sqrt_c, lane);
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {  // all but the newest N groups landed
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// d += A (16 x 16, bf16, row-major) x B (16 x 8, bf16, col-major), fp32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// ---------------------------------------------------------------------------
+// K4, bf16 operands: the tiled kernel (see the note at the top). The queries
+// are read as a grid of grid_w columns (query q at row q / grid_w, column
+// q % grid_w): the level-0 map's own grid when Q = H0 * W0, as RAFT's
+// coords are (so neighbouring queries look at neighbouring pixels), else
+// rows of 16 consecutive queries. Only the choice of tiles depends on it,
+// never the result. A block owns a tile of 4 grid rows x 16 columns of batch
+// element b; warp w the (up to) 16 queries qw + m of row w, m < nq. Lane
+// (g, t) = (lane / 4, lane % 4) holds the A fragments of
+// queries g and g + 8: for each 32-channel group kk, channels 32kk + 8t ..
+// 32kk + 8t + 7 of both rows (two 16-byte loads). The k order of the mma is
+// permuted the same way in A and B (k-step 2kk: channels 8t..8t+3 of each
+// group, k-step 2kk+1: 8t+4..8t+7), so B comes from one 16-byte shared load
+// of pixel g's channels 8t..8t+7 and no ldmatrix is needed. For the blend,
+// lane (m, h) = (lane / 2, lane % 2) owns query m and window columns a of
+// half h.
+template <typename TO, int R, int C>
+__global__ void __launch_bounds__(kTileWarps * 32, 3)
+    ondemand_fwd_tiled_kernel(const __nv_bfloat16* __restrict__ f1, Levels lv,
+                              const float* __restrict__ coords, TO* __restrict__ out, int Q,
+                              int grid_w, int tiles_x, int tiles_per_b, float inv_sqrt_c) {
+  constexpr int K = 2 * R + 1;
+  constexpr int KK = K * K;
+  constexpr int NT = 2 * R + 2;
+  constexpr int KG = C / 32;          // 32-channel groups
+  constexpr int CU = C / kUnitC;      // staged units per box row
+  constexpr int KH = (K + 1) / 2;     // window columns of blend half 0
+  constexpr int CPL = C / 32;
+  static_assert(KK <= kMaxKK, "window");
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* stage = smem;
+  float* dots_all = reinterpret_cast<float*>(smem + kStages * kStageBytes);
+  TO* win_all = reinterpret_cast<TO*>(dots_all + kTileWarps * 16 * kSRow);
+  __shared__ int wrange[kTileWarps][5];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int m = lane >> 1, half = lane & 1;
+  const int64_t b = blockIdx.x / tiles_per_b;
+  const int tile = blockIdx.x % tiles_per_b;
+  const int col0 = (tile % tiles_x) * kTileCols;
+  const int qw = ((tile / tiles_x) * kTileWarps + warp) * grid_w + col0;  // warp's first query
+  const int nq = max(0, min(min(kTileCols, grid_w - col0), Q - qw));      // its queries
+  float* dots = dots_all + warp * 16 * kSRow;
+  TO* win = win_all + warp * 16 * kMaxKK;
+
+  // A fragments of queries qw + g and qw + g + 8 (zero past the warp's nq)
+  uint32_t A[KG][8];
+  {
+    const __nv_bfloat16* fa = f1 + ((int64_t)b * Q + qw + g) * C + 8 * t4;
+    const __nv_bfloat16* fb = fa + 8 * C;
+    const bool va = g < nq, vb = g + 8 < nq;
 #pragma unroll
-        for (int i = 0; i < 16; ++i) p[i] = 0.0f;
-        const T* row = f2 + (int64_t)y * W * C;
-#pragma unroll
-        for (int i = 0; i < NT; ++i) {
-          const int x = t.x + i;
-          if (x >= 0 && x < W) {
-            float v[CPL];
-            load_vec<CPL>(row + (int64_t)x * C, v);
-            float acc = 0.0f;
-#pragma unroll
-            for (int c = 0; c < CPL; ++c) acc = fmaf(a1[c], v[c], acc);
-            p[i] = acc;
-          }
-        }
-        cur = reduce16(p, lane);
-      }
-      if (j > 0) {
-        const float prev_n = __shfl_down_sync(kFull, prev, 2);  // tap a+1, row j-1
-        const float cur_n = __shfl_down_sync(kFull, cur, 2);    // tap a+1, row j
-        const float top = (1.0f - t.fx) * prev + t.fx * prev_n;
-        const float bot = (1.0f - t.fx) * cur + t.fx * cur_n;
-        const float v = ((1.0f - t.fy) * top + t.fy * bot) * inv_sqrt_c;
-        const int a = lane >> 1;
-        if (!(lane & 1) && a < K) store_f(ol + a * K + (j - 1), v);
-      }
-      prev = cur;
+    for (int kk = 0; kk < KG; ++kk) {
+      const uint4 ua = va ? *reinterpret_cast<const uint4*>(fa + 32 * kk) : make_uint4(0, 0, 0, 0);
+      const uint4 ub = vb ? *reinterpret_cast<const uint4*>(fb + 32 * kk) : make_uint4(0, 0, 0, 0);
+      A[kk][0] = ua.x; A[kk][1] = ua.y; A[kk][2] = ua.z; A[kk][3] = ua.w;
+      A[kk][4] = ub.x; A[kk][5] = ub.y; A[kk][6] = ub.z; A[kk][7] = ub.w;
     }
+  }
+  const int qm = qw + m;  // the query this lane blends
+  const bool valid_m = m < nq;
+  float cx0 = 0.0f, cy0 = 0.0f;
+  if (valid_m) {
+    cx0 = coords[2 * ((int64_t)b * Q + qm)];
+    cy0 = coords[2 * ((int64_t)b * Q + qm) + 1];
+  }
+  const int row_stride = lv.n * KK;
+
+  for (int l = 0; l < lv.n; ++l) {
+    const int H = lv.H[l], W = lv.W[l];
+    for (int k = lane; k < 16 * KK; k += 32) store_f(win + k, 0.0f);
+    int route = 0;
+    if (H > 0 && W > 0) {  // uniform over the block
+      const Taps tp = query_taps<R>(cx0, cy0, l, H, W);
+      const int xlo = max(tp.x, 0), xhi = min(tp.x + NT - 1, W - 1);
+      const int ylo = max(tp.y, 0), yhi = min(tp.y + NT - 1, H - 1);
+      const bool has = valid_m && xlo <= xhi && ylo <= yhi;
+      // the warp's box: the union of its queries' in-bounds taps
+      const int wx0 = __reduce_min_sync(kFull, has ? xlo : INT_MAX);
+      const int wx1 = __reduce_max_sync(kFull, has ? xhi : INT_MIN);
+      const int wy0 = __reduce_min_sync(kFull, has ? ylo : INT_MAX);
+      const int wy1 = __reduce_max_sync(kFull, has ? yhi : INT_MIN);
+      const bool warp_has = wx0 <= wx1;
+      if (lane == 0) {
+        wrange[warp][0] = wx0; wrange[warp][1] = wx1;
+        wrange[warp][2] = wy0; wrange[warp][3] = wy1;
+        wrange[warp][4] = !warp_has || wx1 - wx0 + 1 <= kMaxWarpCols;
+      }
+      __syncthreads();
+      int bx0 = INT_MAX, bx1 = INT_MIN, by0 = INT_MAX, by1 = INT_MIN;
+      bool fits = true;
+#pragma unroll
+      for (int w = 0; w < kTileWarps; ++w) {
+        bx0 = min(bx0, wrange[w][0]); bx1 = max(bx1, wrange[w][1]);
+        by0 = min(by0, wrange[w][2]); by1 = max(by1, wrange[w][3]);
+        fits = fits && wrange[w][4];
+      }
+      const bool any = bx0 <= bx1;
+      const int bw = any ? bx1 - bx0 + 1 : 0, bh = any ? by1 - by0 + 1 : 0;
+      const bool tiled = !any || (fits && bw <= kMaxBoxW && bh <= kMaxBoxRows);
+      route = tiled ? 1 : 2;
+      __syncwarp();
+      if (tiled) {
+        const __nv_bfloat16* f2 =
+            static_cast<const __nv_bfloat16*>(lv.ptr[l]) + b * ((int64_t)H * W * C);
+        const int ntw = warp_has ? (wx1 - wx0 + 8) / 8 : 0;  // the warp's n-tiles
+        float hp[KH];                                        // h of the previous tap row
+#pragma unroll
+        for (int i = 0; i < KH; ++i) hp[i] = 0.0f;
+        float acc[kMaxWarpCols / 8][4];
+        const int nunits = bh * CU;
+        const uint32_t stage_s = smem_addr(stage);
+        auto issue = [&](int u) {
+          const int y = by0 + u / CU, cu = u % CU;
+          const __nv_bfloat16* src = f2 + ((int64_t)y * W + bx0) * C + cu * kUnitC;
+          const uint32_t dst = stage_s + (u % kStages) * kStageBytes;
+          for (int e = tid; e < bw * (kUnitC / 8); e += kTileWarps * 32) {
+            const int px = e / (kUnitC / 8), v = e % (kUnitC / 8);
+            cp_async16(dst + px * kPixBytes + v * 16, src + (int64_t)px * C + v * 8);
+          }
+        };
+#pragma unroll
+        for (int u = 0; u < kStages - 1; ++u) {
+          if (u < nunits) issue(u);
+          cp_async_commit();
+        }
+        for (int u = 0; u < nunits; ++u) {
+          if (u + kStages - 1 < nunits) issue(u + kStages - 1);
+          cp_async_commit();
+          cp_async_wait<kStages - 1>();
+          __syncthreads();
+          const int y = by0 + u / CU, cu = u % CU;
+          if (warp_has && y >= wy0 && y <= wy1) {  // uniform over the warp
+            const unsigned char* st = stage + (u % kStages) * kStageBytes;
+#pragma unroll
+            for (int c2 = 0; c2 < CU; ++c2) {
+              if (c2 != cu) continue;
+              if (c2 == 0) {
+#pragma unroll
+                for (int nt = 0; nt < kMaxWarpCols / 8; ++nt)
+                  acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+              }
+#pragma unroll
+              for (int nt = 0; nt < kMaxWarpCols / 8; ++nt) {
+                if (nt < ntw) {
+                  const unsigned char* px =
+                      st + (wx0 - bx0 + nt * 8 + g) * kPixBytes + t4 * 16;
+#pragma unroll
+                  for (int kk = 0; kk < kUnitC / 32; ++kk) {
+                    const uint4 bv = *reinterpret_cast<const uint4*>(px + kk * 64);
+                    const uint32_t* a = A[c2 * (kUnitC / 32) + kk];
+                    mma_bf16(acc[nt], a[0], a[4], a[1], a[5], bv.x, bv.y);
+                    mma_bf16(acc[nt], a[2], a[6], a[3], a[7], bv.z, bv.w);
+                  }
+                }
+              }
+            }
+            if (cu == CU - 1) {
+              // the row's dots, query-major, then the blend of each lane's query
+#pragma unroll
+              for (int nt = 0; nt < kMaxWarpCols / 8; ++nt) {
+                if (nt < ntw) {
+                  const int col = nt * 8 + 2 * t4;
+                  *reinterpret_cast<float2*>(dots + g * kSRow + col) =
+                      make_float2(acc[nt][0], acc[nt][1]);
+                  *reinterpret_cast<float2*>(dots + (g + 8) * kSRow + col) =
+                      make_float2(acc[nt][2], acc[nt][3]);
+                }
+              }
+              __syncwarp();
+              if (has && y >= ylo && y <= yhi) {
+                const int j = y - tp.y;
+                const float* drow = dots + m * kSRow - wx0;
+                const int a0 = half ? KH : 0;
+                float d[KH + 1];
+#pragma unroll
+                for (int i = 0; i <= KH; ++i) {
+                  const int x = tp.x + a0 + i;
+                  d[i] = (a0 + i < NT && x >= xlo && x <= xhi) ? drow[x] : 0.0f;
+                }
+#pragma unroll
+                for (int i = 0; i < KH; ++i) {
+                  const int a = a0 + i;
+                  if (a < K) {
+                    const float hc = (1.0f - tp.fx) * d[i] + tp.fx * d[i + 1];
+                    if (j >= 1)
+                      store_f(win + m * KK + a * K + (j - 1),
+                              ((1.0f - tp.fy) * hp[i] + tp.fy * hc) * inv_sqrt_c);
+                    if (y == yhi && j < K)
+                      store_f(win + m * KK + a * K + j,
+                              ((1.0f - tp.fy) * hc + tp.fy * 0.0f) * inv_sqrt_c);
+                    hp[i] = hc;
+                  }
+                }
+              }
+              __syncwarp();
+            }
+          }
+          __syncthreads();
+        }
+      } else {
+        // per-query route: the warp's 16 queries one by one
+        const __nv_bfloat16* f2 =
+            static_cast<const __nv_bfloat16*>(lv.ptr[l]) + b * ((int64_t)H * W * C);
+        for (int mm = 0; mm < 16; ++mm) {
+          const float cx = __shfl_sync(kFull, cx0, 2 * mm);
+          const float cy = __shfl_sync(kFull, cy0, 2 * mm);
+          if (mm >= nq) break;  // uniform over the warp
+          float a1[CPL];
+          load_vec<CPL>(f1 + ((int64_t)b * Q + qw + mm) * C + lane * CPL, a1);
+          query_window<__nv_bfloat16, TO, R, CPL>(a1, f2, H, W,
+                                                    query_taps<R>(cx, cy, l, H, W),
+                                                    win + mm * KK, inv_sqrt_c, lane);
+        }
+      }
+    }
+    if (tid == 0 && blockIdx.x < kMaxRecordedTiles)
+      g_fwd_route[blockIdx.x * kMaxLevels + l] = (unsigned char)route;
+    __syncwarp();
+    // the warp's window tile: 16 queries x KK values, consecutive stores
+    TO* o = out + ((int64_t)b * Q + qw) * row_stride + l * KK;
+    for (int e = lane; e < 16 * KK; e += 32) {
+      const int mq = e / KK, k = e - mq * KK;
+      if (mq < nq) o[(int64_t)mq * row_stride + k] = win[e];
+    }
+    __syncthreads();  // wrange and win are rewritten for the next level
   }
 }
 
@@ -283,84 +650,310 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 // ---------------------------------------------------------------------------
+// K6's prepass: for each level and fmap2 row y, the queries whose taps
+// cover row y (t.y <= y <= t.y + 2r + 1), in ascending query order: a list
+// of (query, row) pairs sorted stably by row. One block per (level, batch
+// element); warp w takes the w-th of nw contiguous segments of the queries.
+// Each warp counts its segment's pairs per row (lanes of equal row find
+// each other with __match_any_sync and only the lowest moves the count), a
+// scan over (row, warp) gives each warp its cursor in each row, and each
+// warp writes its segment's pairs a query at a time in lane order: the
+// query's in-bounds rows are distinct, so lanes j = 0..2r+1 write one pair
+// each. No atomics. Each pair carries what K6 needs: {q, (t.y << 16) +
+// (t.x & 0xffff), fx bits, fy bits}. starts[y] is the first pair of row y,
+// starts[Hl] (and on, up to nb_stride) the number of pairs; a level with an
+// empty side has starts 0.
+template <int R>
+__global__ void __launch_bounds__(kPlanWarps * 32, 1)
+    ondemand_df2_plan_kernel(Levels lv, const float* __restrict__ coords, int Q,
+                             int64_t pair_stride, int nb_stride, int4* __restrict__ entries,
+                             int* __restrict__ starts) {
+  constexpr int NT = 2 * R + 2;
+  extern __shared__ int cnt[];  // [nw][Hl]: counts, then cursors
+  const int l = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int64_t b = blockIdx.y;
+  const int H = lv.H[l], W = lv.W[l];
+  int* st = starts + (b * lv.n + l) * (int64_t)nb_stride;
+  if (H <= 0 || W <= 0) {  // no rows
+    for (int k = threadIdx.x; k < nb_stride; k += blockDim.x) st[k] = 0;
+    return;
+  }
+  const float2* cb = reinterpret_cast<const float2*>(coords) + b * (int64_t)Q;
+  int4* ent = entries + (b * lv.n + l) * pair_stride;
+  int* wc = cnt + warp * H;
+  for (int k = threadIdx.x; k < nw * H; k += blockDim.x) cnt[k] = 0;
+  __syncthreads();
+  const int seg = (Q + nw - 1) / nw;
+  const int qa = min(Q, warp * seg), qb = min(Q, qa + seg);
+  for (int pass = 0; pass < 2; ++pass) {
+    float2 next = qa + lane < qb ? cb[qa + lane] : make_float2(0.0f, 0.0f);
+    for (int q0 = qa; q0 < qb; q0 += 32) {
+      const int q = q0 + lane;
+      const float2 c = next;
+      if (q + 32 < qb) next = cb[q + 32];  // the next round's coords, in flight
+      const Taps t = query_taps<R>(c.x, c.y, l, H, W);
+      const bool cols = q < qb && t.x + NT - 1 >= 0 && t.x < W;  // any tap column in bounds
+      if (pass == 0) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int y = t.y + j;
+          const bool in = cols && y >= 0 && y < H;
+          const unsigned active = __ballot_sync(kFull, in);
+          if (in) {
+            const unsigned peers = __match_any_sync(active, y);
+            if (lane == __ffs(peers) - 1) wc[y] += __popc(peers);
+          }
+          __syncwarp();
+        }
+      } else {
+        const int4 pair = make_int4(q, t.y * 65536 + (t.x & 0xffff), __float_as_int(t.fx),
+                                    __float_as_int(t.fy));
+        for (int src = 0; src < 32; ++src) {  // queries in lane (query) order
+          const int sq = __shfl_sync(kFull, q, src);
+          const int sy = __shfl_sync(kFull, t.y, src);
+          const bool scols = __shfl_sync(kFull, (int)cols, src);
+          const int4 sp = make_int4(sq, __shfl_sync(kFull, pair.y, src),
+                                    __shfl_sync(kFull, pair.z, src),
+                                    __shfl_sync(kFull, pair.w, src));
+          const int y = sy + lane;
+          if (scols && lane < NT && y >= 0 && y < H) ent[wc[y]++] = sp;
+          __syncwarp();
+        }
+      }
+    }
+    __syncthreads();
+    if (pass == 0 && warp == 0) {
+      // row starts (over rows, then warps within a row) and each warp's cursors
+      int run = 0;
+      for (int k0 = 0; k0 < nb_stride; k0 += 32) {
+        const int k = k0 + lane;
+        int v = 0;
+        for (int w = 0; w < nw && k < H; ++w) v += cnt[w * H + k];
+        int incl = v;
+#pragma unroll
+        for (int sh = 1; sh < 32; sh <<= 1) {
+          const int n = __shfl_up_sync(kFull, incl, sh);
+          if (lane >= sh) incl += n;
+        }
+        const int first = run + incl - v;
+        if (k < nb_stride) st[k] = first;  // the total from k = Hl on
+        if (k < H) {
+          int cur = first;
+          for (int w = 0; w < nw; ++w) {
+            const int n = cnt[w * H + k];
+            cnt[w * H + k] = cur;
+            cur += n;
+          }
+        }
+        run += __shfl_sync(kFull, incl, 31);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K6, the scatter df2_l[p, :] = sum_q drows_q(p) f1[q, :], made a gather so
-// that it needs no atomics and gives the same bits on every run.
-// A block owns a band of `rows` fmap2 rows (all Wl columns) of one batch
-// element and level, and 32 channels: warp w owns row y0 + w, lane the
-// channel, and the band's sums live in shared memory [rows][Wl][32] (lane =
-// bank: no conflicts). The block walks the batch element's queries in
-// order, blockDim at a time: each thread tests one query's tap rows and
-// columns against the band (8 bytes of coords), a ballot and a prefix sum
-// list the hits in query order, and then each warp adds every hit's
-// contribution to its own row. So each df2 element is summed by one thread,
-// over the queries in ascending order, one term per query: deterministic.
-// Every element of every level is written once at the end: no memset.
-template <typename T, typename TG, int R>
-__global__ void ondemand_bwd_df2_kernel(Levels lv, const float* __restrict__ coords,
-                                        const TG* __restrict__ g,
-                                        const T* __restrict__ f1, int Q, int C,
-                                        int rows, float inv_sqrt_c) {
+// that it needs no atomics and gives the same bits on every run. A block owns
+// one fmap2 row y of one level and batch element, 4*cg columns of it, and
+// cs*32*cpl channels of channel block cb (Df2Grid); it reads only the
+// prepass's list of the (query, row y) pairs, so no block walks a level's
+// queries. Rounds of up to 256 pairs (as many as 32 KB of f1 rows hold):
+// each thread takes one pair and tests its tap columns against the block's;
+// a ballot and a prefix sum list the hits in pair order; every thread then
+// copies a share of the hits' f1 rows (the block's channels) into shared
+// memory with cp.async, while each hit's own thread computes its tap
+// cotangents for row y (drows, from the pair's fx, fy and 2K values of g),
+// stored with 3 zeros on each side. Warp w owns columns 4*(w % cg) .. +3
+// and channel group w / cg, lists the round's hits that touch its columns,
+// and adds drows * f1 for each, in order, into registers (lane channels
+// lane*cpl .. +cpl of its group); the zero padding makes the 4 columns'
+// multiply-adds branch-free, and a zero term leaves an fp32 sum unchanged.
+// So each df2 element is summed by one thread over its queries in
+// ascending order, one fmaf per query: deterministic, and the order in
+// which the RAFT-small train-step gate (kernel vs plain, 2e-5 a layer)
+// reads about 1.2e-5 (orders by first tap row with sums split over warps
+// read 1.5e-5 and 2.3e-5 on the H100).
+// Bound: 28.75 MB of compulsory bytes at the training shape, 0.0086 ms; the
+// multiply-adds (1.49 GFLOP with the taps' cotangents) on the CUDA cores
+// (the tensor cores would round drows to bf16) take at least 0.022 ms at
+// the card's fp32 rate. What holds it back: the coarse levels, whose rows
+// are covered by nearly every query (2,852 at 5x7), so each warp adds
+// about as many hits in one chain, a few shared-memory reads and 4*cpl
+// multiply-adds each, with a round's latency (the pairs, then g and f1)
+// every 256 hits. Splitting a row's hits over warps would shorten the chain
+// but change the order of the sums, and so the train step's gradients.
+template <typename T, int R, int CPL>
+__device__ __forceinline__ void df2_block(const Levels& lv, const Df2Grid& gd, int l, int idx,
+                                          int64_t b, const int4* __restrict__ entries,
+                                          int64_t pair_stride, const int* __restrict__ starts,
+                                          int nb_stride, const void* __restrict__ g_any,
+                                          bool g_bf16, const T* __restrict__ f1, int Q, int C,
+                                          float inv_sqrt_c, unsigned char* smem) {
   constexpr int K = 2 * R + 1;
   constexpr int NT = 2 * R + 2;
-  extern __shared__ float smem[];
-  __shared__ int hits[kMaxBandRows * 32];
-  __shared__ int warp_hits[kMaxBandRows];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nthreads = blockDim.x;
-  int l = 0;
-  while (l + 1 < lv.n && (int)blockIdx.x >= lv.band_start[l + 1]) ++l;
+  const int cg = gd.cg[l], cs_n = gd.cs[l], ncb = gd.ncb[l];
+  const int CB = cs_n * 32 * CPL;  // the block's channels
+  const int NR = min(kDf2Threads, kDf2F1Bytes / (CB * (int)sizeof(T)));  // pairs a round
+  T* f1s = reinterpret_cast<T*>(smem);                                    // [NR][CB]
+  // [NR][HDW]: a hit's tap cotangents at 3 + i, zeros on both sides, so
+  // any 4 columns that touch its taps read in range
+  float (*hd)[kHdW] = reinterpret_cast<float (*)[kHdW]>(smem + kDf2F1Bytes);
+  int* hq = reinterpret_cast<int*>(smem + kDf2F1Bytes + kDf2Threads * kHdW * 4);
+  int* htx = hq + kDf2Threads;
+  int* warp_hits = htx + kDf2Threads;
+  int* wl = warp_hits + kDf2Warps + (threadIdx.x >> 5) * kDf2Threads;  // the warp's hits
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int H = lv.H[l], W = lv.W[l];
-  const int y0 = ((int)blockIdx.x - lv.band_start[l]) * rows;
-  const int c0 = blockIdx.y * kChunk;
-  const int64_t b = blockIdx.z;
-  const int y = y0 + warp;  // this warp's fmap2 row (may be past H: idle)
-  float* acc = smem + (size_t)warp * W * kChunk;
-  for (int x = 0; x < W; ++x) acc[x * kChunk + lane] = 0.0f;
-  const float* cb = coords + b * 2 * (int64_t)Q;
-  const TG* gb = g + b * (int64_t)Q * (lv.n * K * K) + l * K * K;
-  const T* f1b = f1 + b * (int64_t)Q * C + c0 + lane;
-  const int band_end = min(y0 + rows, H);
-  for (int q0 = 0; q0 < Q; q0 += nthreads) {
-    const int q = q0 + (int)threadIdx.x;
+  const int per_row = gd.nseg[l] * ncb;
+  const int y = idx / per_row, seg = (idx % per_row) / ncb, cb = idx % ncb;
+  const int x0 = seg * 4 * cg, x_end = min(x0 + 4 * cg, W);
+  const int xw0 = x0 + 4 * (warp % cg);
+  const int cw = (warp / cg) * 32 * CPL + lane * CPL;  // the lane's channels in the block's
+  // the warp sums columns xw0 .. xw0 + 3 over its channel group warp / cg
+  const bool owner = warp < cg * cs_n && xw0 < x_end;
+  const int4* ent = entries + (b * lv.n + l) * pair_stride;
+  const int* st = starts + (b * lv.n + l) * (int64_t)nb_stride;
+  const int e_begin = st[y], e_end = st[y + 1];
+  const int row_g = lv.n * K * K;
+  const T* f1b = f1 + (int64_t)b * Q * C + cb * CB;
+  const uint32_t f1s_s = smem_addr(f1s);
+  float acc[4][CPL];
+#pragma unroll
+  for (int xx = 0; xx < 4; ++xx)
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[xx][c] = 0.0f;
+  for (int e0 = e_begin; e0 < e_end; e0 += NR) {
+    const int e = e0 + tid;
     bool hit = false;
-    if (q < Q) {
-      const Taps t = query_taps<R>(cb[2 * q], cb[2 * q + 1], l, H, W);
-      hit = t.y + NT - 1 >= y0 && t.y < band_end && t.x + NT - 1 >= 0 && t.x < W;
+    int4 en = make_int4(0, 0, 0, 0);
+    int tx = 0;
+    if (tid < NR && e < e_end) {
+      en = ent[e];
+      tx = (int)(short)(en.y & 0xffff);
+      hit = tx + NT - 1 >= x0 && tx < x_end;
     }
     const unsigned mask = __ballot_sync(kFull, hit);
     if (lane == 0) warp_hits[warp] = __popc(mask);
     __syncthreads();
     int before = 0, total = 0;
-    for (int w = 0; w < nthreads / 32; ++w) {
+#pragma unroll
+    for (int w = 0; w < kDf2Warps; ++w) {
       before += w < warp ? warp_hits[w] : 0;
       total += warp_hits[w];
     }
-    if (hit) hits[before + __popc(mask & ((1u << lane) - 1))] = q;
+    const int slot = before + __popc(mask & ((1u << lane) - 1));
+    if (hit) {
+      hq[slot] = en.x;
+      htx[slot] = tx;
+    }
     __syncthreads();
-    if (y < band_end) {
-      for (int h = 0; h < total; ++h) {
-        const int qh = hits[h];
-        const Taps t = query_taps<R>(cb[2 * qh], cb[2 * qh + 1], l, H, W);
-        const int j = y - t.y;
-        if (j < 0 || j >= NT) continue;  // uniform over the warp
-        const float gy = row_cotangent<TG, R>(gb + (int64_t)qh * (lv.n * K * K), j, t.fy,
-                                              inv_sqrt_c, lane);
-        const float fv = to_f(f1b[(int64_t)qh * C]);
+    // the hits' f1 rows (the block's channels) into shared memory ...
+    const int kChunks = CB * (int)sizeof(T) / 16;
+    for (int k = tid; k < total * kChunks; k += kDf2Threads) {
+      const int h = k / kChunks, v = k % kChunks;
+      cp_async16(f1s_s + (uint32_t)(h * CB * (int)sizeof(T) + v * 16),
+                 reinterpret_cast<const unsigned char*>(f1b + (int64_t)hq[h] * C) + v * 16);
+    }
+    cp_async_commit();
+    // ... while each hit's thread computes its tap cotangents for row y
+    if (hit) {
+      const int j = y - (en.y >> 16);  // in [0, NT): the pair covers row y
+      const float fx = __int_as_float(en.z), fy = __int_as_float(en.w);
+      const int64_t go = ((int64_t)b * Q + en.x) * row_g + l * K * K;
+      float gy[K];
 #pragma unroll
-        for (int i = 0; i < NT; ++i) {
-          const float d = tap_cotangent(gy, i, t.fx);
-          const int x = t.x + i;
-          if (x >= 0 && x < W) acc[x * kChunk + lane] = fmaf(d, fv, acc[x * kChunk + lane]);
+      for (int a = 0; a < K; ++a) {
+        float g0 = 0.0f, g1 = 0.0f;
+        if (g_bf16) {
+          const __nv_bfloat16* gl = static_cast<const __nv_bfloat16*>(g_any) + go;
+          if (j < K) g0 = to_f(gl[a * K + j]) * inv_sqrt_c;
+          if (j >= 1) g1 = to_f(gl[a * K + j - 1]) * inv_sqrt_c;
+        } else {
+          const float* gl = static_cast<const float*>(g_any) + go;
+          if (j < K) g0 = gl[a * K + j] * inv_sqrt_c;
+          if (j >= 1) g1 = gl[a * K + j - 1] * inv_sqrt_c;
+        }
+        gy[a] = (1.0f - fy) * g0 + fy * g1;
+      }
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        const float gi = i < K ? gy[i] : 0.0f;
+        const float gm = i > 0 ? gy[i - 1] : 0.0f;
+        hd[slot][3 + i] = (1.0f - fx) * gi + fx * gm;
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i) hd[slot][i] = hd[slot][3 + NT + i] = 0.0f;
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (owner) {  // uniform over the warp
+      int nw = 0;  // the round's hits that touch the warp's columns, in order
+      for (int h0 = 0; h0 < total; h0 += 32) {
+        const int h = h0 + lane;
+        const bool touch = h < total && htx[h] + NT - 1 >= xw0 && htx[h] <= xw0 + 3;
+        const unsigned tm = __ballot_sync(kFull, touch);
+        if (touch) wl[nw + __popc(tm & ((1u << lane) - 1))] = h;
+        nw += __popc(tm);
+      }
+      __syncwarp();
+      // a tap outside a hit's window adds d = 0: fmaf(0, v, acc) is acc
+      // exactly (v finite; acc starts at +0 and is never -0), so the sums
+      // are those of the hit's taps alone
+#pragma unroll 4
+      for (int k = 0; k < nw; ++k) {
+        const int h = wl[k];
+        float v[CPL];
+        load_vec<CPL>(f1s + h * CB + cw, v);
+        const float* dh = hd[h] + 3 + xw0 - htx[h];  // column xw0's cotangent, in range
+#pragma unroll
+        for (int xx = 0; xx < 4; ++xx) {
+          const float d = dh[xx];
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) acc[xx][c] = fmaf(d, v[c], acc[xx][c]);
         }
       }
     }
-    __syncthreads();  // hits[] is rewritten by the next round
+    __syncthreads();  // the round's buffers are rewritten by the next round
   }
-  if (y < band_end) {
+  if (owner) {
     float* out = static_cast<float*>(const_cast<void*>(lv.ptr[l])) +
-                 ((b * H + y) * (int64_t)W) * C + c0 + lane;
-    for (int x = 0; x < W; ++x) out[(int64_t)x * C] = acc[x * kChunk + lane];
+                 ((b * H + y) * (int64_t)W) * C + cb * CB + cw;
+#pragma unroll
+    for (int xx = 0; xx < 4; ++xx)
+      if (xw0 + xx < x_end) store_vec<CPL>(out + (int64_t)(xw0 + xx) * C, acc[xx]);
+  }
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kDf2Threads, 2)
+    ondemand_bwd_df2_kernel(Levels lv, Df2Grid gd, const int4* __restrict__ entries,
+                            int64_t pair_stride, const int* __restrict__ starts, int nb_stride,
+                            const void* __restrict__ g, bool g_bf16, const T* __restrict__ f1,
+                            int Q, int C, float inv_sqrt_c) {
+  extern __shared__ __align__(16) unsigned char df2_shared[];
+  int l = 0;
+  while (l + 1 < lv.n && (int)blockIdx.x >= gd.block_start[l + 1]) ++l;
+  const int idx = (int)blockIdx.x - gd.block_start[l];
+  const int64_t b = blockIdx.y;
+  switch (gd.cpl[l]) {
+    case 8:
+      df2_block<T, R, 8>(lv, gd, l, idx, b, entries, pair_stride, starts, nb_stride, g, g_bf16,
+                         f1, Q, C, inv_sqrt_c, df2_shared);
+      break;
+    case 4:
+      df2_block<T, R, 4>(lv, gd, l, idx, b, entries, pair_stride, starts, nb_stride, g, g_bf16,
+                         f1, Q, C, inv_sqrt_c, df2_shared);
+      break;
+    case 2:
+      df2_block<T, R, 2>(lv, gd, l, idx, b, entries, pair_stride, starts, nb_stride, g, g_bf16,
+                         f1, Q, C, inv_sqrt_c, df2_shared);
+      break;
+    default:
+      df2_block<T, R, 1>(lv, gd, l, idx, b, entries, pair_stride, starts, nb_stride, g, g_bf16,
+                         f1, Q, C, inv_sqrt_c, df2_shared);
+      break;
   }
 }
 
@@ -392,18 +985,50 @@ void launch_fwd(const void* f1, const Levels& lv, const void* coords, void* out,
       static_cast<TO*>(out), bq, Q, inv_sqrt(C));
 }
 
-template <typename T, typename TO, int R>
-void fwd_by_width(const void* f1, const Levels& lv, const void* coords, void* out,
-                  int64_t bq, int Q, int C, cudaStream_t s) {
-  if (C == 256) launch_fwd<T, TO, R, 8>(f1, lv, coords, out, bq, Q, C, s);
-  else launch_fwd<T, TO, R, 4>(f1, lv, coords, out, bq, Q, C, s);
+template <typename TO, int R, int C>
+cudaError_t launch_fwd_tiled(const void* f1, const Levels& lv, const void* coords, void* out,
+                             int B, int Q, cudaStream_t s) {
+  auto kernel = ondemand_fwd_tiled_kernel<TO, R, C>;
+  const size_t smem = fwd_smem<TO>();
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // the query grid: level 0's when the queries are its pixels, else rows of 16
+  const int grid_w = (lv.W[0] > 0 && (int64_t)lv.H[0] * lv.W[0] == Q) ? lv.W[0] : kTileCols;
+  const int tiles_x = (grid_w + kTileCols - 1) / kTileCols;
+  const int64_t grid_h = ((int64_t)Q + grid_w - 1) / grid_w;
+  const int64_t tiles = B * (int64_t)tiles_x * ((grid_h + kTileWarps - 1) / kTileWarps);
+  if (tiles > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  g_last_tiles = (int)tiles;
+  g_last_levels = lv.n;
+  kernel<<<(unsigned)tiles, kTileWarps * 32, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(f1), lv, static_cast<const float*>(coords),
+      static_cast<TO*>(out), Q, grid_w, tiles_x, (int)(tiles / B), inv_sqrt(C));
+  return cudaSuccess;
 }
 
 template <typename T, typename TO>
-void fwd_by_radius(const void* f1, const Levels& lv, const void* coords, void* out,
-                   int64_t bq, int Q, int C, int radius, cudaStream_t s) {
-  if (radius == 4) fwd_by_width<T, TO, 4>(f1, lv, coords, out, bq, Q, C, s);
-  else fwd_by_width<T, TO, 3>(f1, lv, coords, out, bq, Q, C, s);
+cudaError_t fwd_by_shape(const void* f1, const Levels& lv, const void* coords, void* out, int B,
+                         int Q, int C, int radius, cudaStream_t s) {
+  const int64_t bq = (int64_t)B * Q;
+  if constexpr (sizeof(T) == 2) {
+    if (radius == 4) {
+      return C == 256 ? launch_fwd_tiled<TO, 4, 256>(f1, lv, coords, out, B, Q, s)
+                      : launch_fwd_tiled<TO, 4, 128>(f1, lv, coords, out, B, Q, s);
+    }
+    return C == 256 ? launch_fwd_tiled<TO, 3, 256>(f1, lv, coords, out, B, Q, s)
+                    : launch_fwd_tiled<TO, 3, 128>(f1, lv, coords, out, B, Q, s);
+  } else {
+    g_last_tiles = 0;
+    if (radius == 4) {
+      if (C == 256) launch_fwd<T, TO, 4, 8>(f1, lv, coords, out, bq, Q, C, s);
+      else launch_fwd<T, TO, 4, 4>(f1, lv, coords, out, bq, Q, C, s);
+    } else {
+      if (C == 256) launch_fwd<T, TO, 3, 8>(f1, lv, coords, out, bq, Q, C, s);
+      else launch_fwd<T, TO, 3, 4>(f1, lv, coords, out, bq, Q, C, s);
+    }
+    return cudaSuccess;
+  }
 }
 
 template <typename T, typename TG, int R, int CPL>
@@ -427,27 +1052,31 @@ void df1_by_shape(const Levels& lv, const void* coords, const void* g, void* df1
   }
 }
 
-template <typename T, typename TG, int R>
-cudaError_t launch_df2(const Levels& lv, const void* coords, const void* g,
-                       const void* f1, int B, int Q, int C, int rows, size_t smem,
-                       cudaStream_t s) {
-  auto kernel = ondemand_bwd_df2_kernel<T, TG, R>;
-  cudaError_t err =
+constexpr size_t df2_smem() {
+  return kDf2F1Bytes + (size_t)kDf2Threads * kHdW * 4 +
+         (size_t)(2 * kDf2Threads + kDf2Warps + kDf2Warps * kDf2Threads) * 4;
+}
+
+template <typename T, int R>
+cudaError_t launch_df2(const Levels& lv, const Df2Grid& gd, const void* entries,
+                       int64_t pair_stride, const void* starts, int nb_stride, const void* g,
+                       bool g_bf16, const void* f1, int B, int Q, int C, cudaStream_t s) {
+  auto kernel = ondemand_bwd_df2_kernel<T, R>;
+  const size_t smem = df2_smem();
+  const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)lv.band_start[lv.n], (unsigned)(C / kChunk), (unsigned)B);
-  kernel<<<grid, rows * 32, smem, s>>>(lv, static_cast<const float*>(coords),
-                                       static_cast<const TG*>(g), static_cast<const T*>(f1),
-                                       Q, C, rows, inv_sqrt(C));
+  const dim3 grid((unsigned)gd.block_start[lv.n], (unsigned)B);
+  kernel<<<grid, kDf2Threads, smem, s>>>(lv, gd, static_cast<const int4*>(entries), pair_stride,
+                                         static_cast<const int*>(starts), nb_stride, g, g_bf16,
+                                         static_cast<const T*>(f1), Q, C, inv_sqrt(C));
   return cudaSuccess;
 }
 
-template <typename T, typename TG>
-cudaError_t df2_by_radius(const Levels& lv, const void* coords, const void* g,
-                          const void* f1, int B, int Q, int C, int radius, int rows,
-                          size_t smem, cudaStream_t s) {
-  if (radius == 4) return launch_df2<T, TG, 4>(lv, coords, g, f1, B, Q, C, rows, smem, s);
-  return launch_df2<T, TG, 3>(lv, coords, g, f1, B, Q, C, rows, smem, s);
+int next_pow2(int v) {
+  int p = 1;
+  while (p < v) p *= 2;
+  return p;
 }
 
 }  // namespace
@@ -473,13 +1102,36 @@ extern "C" int raft_corr_ondemand_fwd(const void* f1, const void* const* level_p
   if (bq == 0) return (int)cudaSuccess;
   if ((bq + kWarps - 1) / kWarps > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   switch (in_dtype * 2 + out_dtype) {
-    case 0: fwd_by_radius<float, float>(f1, lv, coords, out, bq, Q, C, radius, s); break;
-    case 1: fwd_by_radius<float, __nv_bfloat16>(f1, lv, coords, out, bq, Q, C, radius, s); break;
-    case 2: fwd_by_radius<__nv_bfloat16, float>(f1, lv, coords, out, bq, Q, C, radius, s); break;
-    default: fwd_by_radius<__nv_bfloat16, __nv_bfloat16>(f1, lv, coords, out, bq, Q, C, radius, s); break;
+    case 0: err = fwd_by_shape<float, float>(f1, lv, coords, out, B, Q, C, radius, s); break;
+    case 1: err = fwd_by_shape<float, __nv_bfloat16>(f1, lv, coords, out, B, Q, C, radius, s); break;
+    case 2: err = fwd_by_shape<__nv_bfloat16, float>(f1, lv, coords, out, B, Q, C, radius, s); break;
+    default: err = fwd_by_shape<__nv_bfloat16, __nv_bfloat16>(f1, lv, coords, out, B, Q, C, radius, s); break;
   }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Routes of the last bf16 raft_corr_ondemand_fwd launch in this process:
+// counts[0] (tile, level) pairs tiled, counts[1] per query, counts[2] the
+// tiles recorded (at most 65536; 0 after an fp32 launch). Synchronous.
+extern "C" int raft_corr_ondemand_fwd_routes(long long* counts) {
+  counts[0] = counts[1] = counts[2] = 0;
+  const int tiles = g_last_tiles < kMaxRecordedTiles ? g_last_tiles : kMaxRecordedTiles;
+  if (tiles == 0) return (int)cudaSuccess;
+  static unsigned char host[kMaxRecordedTiles * kMaxLevels];
+  const cudaError_t err =
+      cudaMemcpyFromSymbol(host, g_fwd_route, (size_t)tiles * kMaxLevels);
+  if (err != cudaSuccess) return (int)err;
+  for (int i = 0; i < tiles; ++i)
+    for (int l = 0; l < g_last_levels; ++l) {
+      const unsigned char r = host[i * kMaxLevels + l];
+      if (r == 1) ++counts[0];
+      if (r == 2) ++counts[1];
+    }
+  counts[2] = tiles;
+  return (int)cudaSuccess;
 }
 
 // fmap2 levels [B, Hl, Wl, C] (f2_dtype), coords [B, Q, 2] fp32 level-0,
@@ -507,42 +1159,96 @@ extern "C" int raft_corr_ondemand_bwd_df1(const void* const* level_ptrs, const i
   return (int)cudaGetLastError();
 }
 
+// K6's prepass. coords [B, Q, 2] fp32 level-0; level_h, level_w: the df2
+// levels' shapes (host arrays); entries [B, n_levels, pair_stride] int4,
+// pair_stride >= Q * (2r + 2) (a level's first starts[Hl] written) and
+// starts [B, n_levels, nb_stride] int32, nb_stride >= Hl + 1 for every level.
+extern "C" int raft_corr_ondemand_df2_plan(const void* coords, const int* level_h,
+                                           const int* level_w, int n_levels, int B, int Q,
+                                           int radius, void* entries, long long pair_stride,
+                                           void* starts, int nb_stride, void* stream) {
+  Levels lv;
+  const void* none[kMaxLevels] = {};
+  if (!fill_levels(&lv, none, level_h, level_w, n_levels) || B < 0 || B > 65535 || Q < 0 ||
+      (radius != 3 && radius != 4) || pair_stride < (long long)Q * (2 * radius + 2))
+    return (int)cudaErrorInvalidValue;
+  int h_max = 0;
+  for (int i = 0; i < n_levels; ++i) {
+    if (lv.H[i] > 32767 || lv.W[i] > 32767) return (int)cudaErrorInvalidValue;  // packed taps
+    if (lv.W[i] > 0 && lv.H[i] > h_max) h_max = lv.H[i];
+  }
+  if (h_max + 1 > nb_stride || h_max * (int)sizeof(int) > kPlanSmem)
+    return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * Q == 0) return (int)cudaSuccess;
+  // as many warps as their counts fit in kPlanSmem, and no more than 32 queries each
+  int nw = kPlanWarps;
+  while (nw > 1 && ((size_t)nw * h_max * sizeof(int) > (size_t)kPlanSmem || 32 * nw > Q))
+    nw /= 2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)n_levels, (unsigned)B);
+  const size_t smem = (size_t)nw * h_max * sizeof(int);
+  auto kernel = radius == 4 ? ondemand_df2_plan_kernel<4> : ondemand_df2_plan_kernel<3>;
+  kernel<<<grid, nw * 32, smem, s>>>(lv, static_cast<const float*>(coords), Q,
+                                     (int64_t)pair_stride, nb_stride,
+                                     static_cast<int4*>(entries), static_cast<int*>(starts));
+  return (int)cudaGetLastError();
+}
+
 // df2 levels [B, Hl, Wl, C] fp32 (every element written; empty levels
-// allowed), coords [B, Q, 2] fp32 level-0, g [B, Q, n_levels*K*K] (g_dtype),
-// f1 [B, Q, C] (f1_dtype).
+// allowed); entries, pair_stride, starts and nb_stride from
+// raft_corr_ondemand_df2_plan on the same coords, shapes and radius; g [B, Q,
+// n_levels*K*K] (g_dtype), f1 [B, Q, C] (f1_dtype).
 extern "C" int raft_corr_ondemand_bwd_df2(const void* const* df2_ptrs, const int* level_h,
                                           const int* level_w, int n_levels,
-                                          const void* coords, const void* g, const void* f1,
-                                          int B, int Q, int C, int radius, int f1_dtype,
-                                          int g_dtype, void* stream) {
+                                          const void* entries, long long pair_stride,
+                                          const void* starts, int nb_stride, const void* g,
+                                          const void* f1, int B, int Q, int C, int radius,
+                                          int f1_dtype, int g_dtype, void* stream) {
   Levels lv;
   if (!fill_levels(&lv, df2_ptrs, level_h, level_w, n_levels) ||
       !kernel_shape_ok(B, Q, C, radius) || f1_dtype < 0 || f1_dtype > 1 || g_dtype < 0 ||
-      g_dtype > 1 || B > 65535)
+      g_dtype > 1 || B > 65535 || pair_stride < (long long)Q * (2 * radius + 2))
     return (int)cudaErrorInvalidValue;
   if ((int64_t)B * Q == 0) return (int)cudaSuccess;
-  // rows per band: as many as fit the shared-memory budget at the widest level
-  int w_max = 1;
-  for (int i = 0; i < n_levels; ++i) w_max = lv.W[i] > w_max ? lv.W[i] : w_max;
-  const size_t row_bytes = (size_t)w_max * kChunk * sizeof(float);
-  if (row_bytes > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
-  int rows = (int)(kSmemBudget / row_bytes);
-  rows = rows < 1 ? 1 : (rows > kMaxBandRows ? kMaxBandRows : rows);
-  lv.band_start[0] = 0;
+  Df2Grid gd;
+  gd.block_start[0] = 0;
   for (int i = 0; i < kMaxLevels; ++i) {
-    const int bands = (i < n_levels && lv.W[i] > 0) ? (lv.H[i] + rows - 1) / rows : 0;
-    lv.band_start[i + 1] = lv.band_start[i] + bands;
+    int blocks = 0;
+    gd.cg[i] = gd.cs[i] = gd.nseg[i] = gd.ncb[i] = gd.cpl[i] = 1;
+    if (i < n_levels && lv.H[i] > 0 && lv.W[i] > 0) {
+      if (lv.H[i] + 1 > nb_stride) return (int)cudaErrorInvalidValue;
+      const int W = lv.W[i];
+      const int cg = next_pow2((W < 32 ? W + 3 : 35) / 4);  // column groups of 4
+      const int cs = min(kDf2Warps / cg, C / 32);            // the other warps: channels
+      const int nseg = (W + 4 * cg - 1) / (4 * cg);
+      const int64_t base = (int64_t)B * lv.H[i] * nseg;
+      int ncb = 1;  // channel blocks: until the level fills the card or a lane has 1 channel
+      while (ncb * cs < C / 32 && base * ncb < kDf2TargetBlocks) ncb *= 2;
+      gd.cg[i] = cg;
+      gd.cs[i] = cs;
+      gd.nseg[i] = nseg;
+      gd.ncb[i] = ncb;
+      gd.cpl[i] = C / (32 * cs * ncb);
+      const int64_t nbk = (int64_t)lv.H[i] * nseg * ncb;
+      if (nbk + gd.block_start[i] > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+      blocks = (int)nbk;
+    }
+    gd.block_start[i + 1] = gd.block_start[i] + blocks;
   }
-  if (lv.band_start[n_levels] == 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)rows * row_bytes;
+  if (gd.block_start[n_levels] == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool g_bf16 = g_dtype == 1;
   cudaError_t err;
-  switch (f1_dtype * 2 + g_dtype) {
-    case 0: err = df2_by_radius<float, float>(lv, coords, g, f1, B, Q, C, radius, rows, smem, s); break;
-    case 1: err = df2_by_radius<float, __nv_bfloat16>(lv, coords, g, f1, B, Q, C, radius, rows, smem, s); break;
-    case 2: err = df2_by_radius<__nv_bfloat16, float>(lv, coords, g, f1, B, Q, C, radius, rows, smem, s); break;
-    default: err = df2_by_radius<__nv_bfloat16, __nv_bfloat16>(lv, coords, g, f1, B, Q, C, radius, rows, smem, s); break;
-  }
+  if (f1_dtype == 1)
+    err = radius == 4 ? launch_df2<__nv_bfloat16, 4>(lv, gd, entries, pair_stride, starts,
+                                                     nb_stride, g, g_bf16, f1, B, Q, C, s)
+                      : launch_df2<__nv_bfloat16, 3>(lv, gd, entries, pair_stride, starts,
+                                                     nb_stride, g, g_bf16, f1, B, Q, C, s);
+  else
+    err = radius == 4 ? launch_df2<float, 4>(lv, gd, entries, pair_stride, starts, nb_stride,
+                                             g, g_bf16, f1, B, Q, C, s)
+                      : launch_df2<float, 3>(lv, gd, entries, pair_stride, starts, nb_stride,
+                                             g, g_bf16, f1, B, Q, C, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,12 @@ version's einsums: max_rel = max|d| / max|ref| within 2e-5 (fp32 volume) and
 their C-long dot products in another order than their plain version's
 einsums: fp32 outputs within max_rel 2e-5; K4's bf16 windows within one
 bf16 rounding step of the plain fp32 value (plus 2e-5 * max|ref| for sums
-that cancel); K6 gives the same bits on every run. K7 (one SepConvGRU pass)
+that cancel); K6 gives the same bits on every run, and its prepass (integers
+and exact fp32 values) equals its plain version. K4's bf16 tiles of 64
+queries and K6's row runs are also held on the inputs that could break them:
+a ragged last tile, tiles across the level's border, one far query in a
+tile, coords spread over the whole level (K4's per-query route) and a
+smooth field. K7 (one SepConvGRU pass)
 sums its 5*(D+X)-long gate products in another order than its plain
 version's matmuls: fp32 within max_rel 1e-5; bf16 within one bf16 rounding
 step of the plain value, plus what one flipped rounding of r*h (a bf16 step of
@@ -227,7 +232,83 @@ def test_ondemand_kernels_match_plain(cuda, radius, C, hw, dtype):
         if b.numel():
             assert _max_rel(a, b) <= 2e-5
     assert co.LAUNCHES == {"corr_ondemand_fwd": 1, "corr_ondemand_bwd_df1": 1,
-                           "corr_ondemand_bwd_df2": 1}
+                           "corr_ondemand_bwd_df2": 1, "corr_ondemand_df2_plan": 1}
+
+
+def _tiling_coords(kind, B, h, w, seed):
+    """Coords [B, h*w, 2] that stress K4's query tiles (4 x 16 queries of
+    the h x w grid) and K6's row runs: `ragged` (h, w not multiples of the
+    tile), `border` (tiles straddling the right and top borders), `far_one`
+    (one query at +-1e6 among in-bounds neighbours), `uniform` (spread over
+    the whole level: the widest box), `smooth` (grid + a bilinear 4x8 field
+    of +-8 px)."""
+    rng = np.random.RandomState(seed)
+    gy, gx = np.mgrid[0:h, 0:w]
+    grid = np.stack([gx, gy], -1)[None].repeat(B, 0).astype(np.float32)
+    if kind == "uniform":
+        c = rng.uniform(0, 1, grid.shape).astype(np.float32) * np.float32([w, h])
+    elif kind == "smooth":
+        field = torch.from_numpy(rng.uniform(-8, 8, (B, 2, 4, 8)).astype(np.float32))
+        c = grid + torch.nn.functional.interpolate(
+            field, size=(h, w), mode="bilinear", align_corners=True).permute(0, 2, 3, 1).numpy()
+    else:
+        c = grid + rng.uniform(-3, 3, grid.shape).astype(np.float32)
+    c = c.reshape(B, h * w, 2)
+    if kind == "border":
+        c[:, :64, 0] = w - 1 + rng.uniform(-2.5, 2.5, (B, 64)).astype(np.float32)
+        c[:, :64, 1] = rng.uniform(-1.5, 1.5, (B, 64)).astype(np.float32)
+    if kind == "far_one":
+        c[:, 70] += 1.0e6
+        c[:, 75] -= 1.0e6
+    return torch.from_numpy(np.ascontiguousarray(c))
+
+
+TILING_SHAPES = {"ragged": (9, 13), "border": (8, 24), "far_one": (8, 16),
+                 "uniform": (6, 128), "smooth": (12, 40)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,radius", [(128, 3), (256, 4), (128, 4), (256, 3)])
+@pytest.mark.parametrize("kind", sorted(TILING_SHAPES))
+def test_ondemand_tiling_cases(cuda, kind, C, radius, dtype):
+    from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
+
+    h, w = TILING_SHAPES[kind]
+    f1, levels, _ = _ondemand_case(cuda, h, w, C, dtype, seed=radius + C, far=False)
+    coords = _tiling_coords(kind, 2, h, w, seed=len(kind) + radius).to(cuda)
+    co.reset_launches()
+    out = co.corr_ondemand_fwd(f1, levels, coords, radius, dtype)
+    routes = co.corr_ondemand_fwd_routes()
+    ref = co.corr_ondemand_fwd_plain(f1, levels, coords, radius, torch.float32)
+    if dtype == torch.float32:
+        assert _max_rel(out, ref) <= 2e-5
+        assert routes["tiles"] == 0  # fp32 operands: a warp per query
+    else:
+        assert torch.all((out.float() - ref).abs() <= _bf16_step(ref) + 2e-5 * ref.abs().max())
+        assert routes["tiles"] == 2 * -(-w // 16) * -(-h // 4)  # tiles of 4 x 16 queries
+        if kind == "uniform":  # level 0's box (128 columns) is wider than a tile stages
+            assert routes["per_query"] >= 1
+        if kind == "smooth":
+            assert routes["per_query"] == 0 and routes["tiled"] == routes["tiles"] * 4
+    if kind == "far_one":
+        assert torch.all(out[:, [70, 75]] == 0)
+    gen = torch.Generator(device="cuda").manual_seed(radius)
+    g = torch.randn(out.shape, device=cuda, generator=gen).to(dtype)
+    shapes = [tuple(f.shape[1:3]) for f in levels]
+    entries, starts = co.corr_ondemand_df2_plan(coords, shapes, radius)
+    ref_entries, ref_starts = co.corr_ondemand_df2_plan_plain(coords, shapes, radius)
+    assert torch.equal(starts, ref_starts)
+    for lvl, (hl, wl) in enumerate(shapes):  # the pairs; the kernel writes no more
+        for bb in range(2):
+            n = int(ref_starts[bb, lvl, hl]) if hl > 0 and wl > 0 else 0
+            assert torch.equal(entries[bb, lvl, :n], ref_entries[bb, lvl, :n])
+    df2 = co.corr_ondemand_bwd_df2(f1, coords, g, shapes, radius)
+    again = co.corr_ondemand_bwd_df2(f1, coords, g, shapes, radius)
+    assert all(torch.equal(a, b) for a, b in zip(df2, again))
+    for a, b in zip(df2, co.corr_ondemand_bwd_df2_plain(f1, coords, g, shapes, radius)):
+        assert a.shape == b.shape and (b.numel() == 0 or _max_rel(a, b) <= 2e-5)
+    assert co.LAUNCHES == {"corr_ondemand_fwd": 1, "corr_ondemand_bwd_df1": 0,
+                           "corr_ondemand_bwd_df2": 2, "corr_ondemand_df2_plan": 3}
 
 
 def test_ondemand_df2_is_deterministic(cuda):
@@ -252,7 +333,7 @@ def test_ondemand_function_on_card(cuda):
     out = co.ondemand_corr_pyramid_cuda(fmap1, tl, coords.reshape(2, 9, 12, 2), 3, torch.bfloat16)
     out.float().square().sum().backward()
     assert co.LAUNCHES == {"corr_ondemand_fwd": 1, "corr_ondemand_bwd_df1": 1,
-                           "corr_ondemand_bwd_df2": 1}
+                           "corr_ondemand_bwd_df2": 1, "corr_ondemand_df2_plan": 1}
     assert fmap1.grad.dtype == torch.bfloat16 and all(p.grad.dtype == torch.bfloat16 for p in tl)
     assert torch.isfinite(fmap1.grad.float()).all()
 

@@ -154,5 +154,6 @@ def test_kernel_source_is_plain_cuda():
                             "corr_ondemand.cu")).read()
     assert "torch/extension.h" not in src and "pybind11" not in src and "atomicAdd" not in src
     for fn in ("raft_corr_ondemand_fwd", "raft_corr_ondemand_bwd_df1",
-               "raft_corr_ondemand_bwd_df2"):
+               "raft_corr_ondemand_bwd_df2", "raft_corr_ondemand_df2_plan",
+               "raft_corr_ondemand_fwd_routes"):
         assert f'extern "C" int {fn}(' in src
