@@ -20,18 +20,11 @@
 //
 // Design: on the TPU the lookup was two batched selector matmuls plus one-hot
 // placement matmuls, because Mosaic handles per-query addressing poorly. On
-// the card it is a gather: one thread per output value reads its four taps
-// from the query's row and writes one element, so consecutive threads write
-// consecutive outputs. The arithmetic is written without fused multiply-adds,
-// in the operation order of ops/corr.py::sample_corr_window, so the kernels
-// agree bit for bit with their plain PyTorch version.
-//
-// Bound on the card: bytes. Per query and level the kernel needs at most the
-// (K+1)^2 volume elements of its patch, the query's two coords, and writes K^2
-// outputs; a few flops per output are far below the compute rate. The taps of
-// one output are reloaded by its neighbours from L1/L2 rather than shared
-// through shared memory: this first version is simple and right; making it
-// fast is later work.
+// the card it is a gather: a block stages the pixels its windows' taps reach in
+// shared memory and forms the windows from there (see K1 and K2 below). The arithmetic is written without
+// fused multiply-adds, in the operation order of
+// ops/corr.py::sample_corr_window, so the kernels agree bit for bit with their
+// plain PyTorch version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,19 +46,236 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Window value at (a, b) of one query's [H, W] row around (cx, cy).
+// K1 and K2 (and K8 through K2's entry): a block of kThreads threads forms
+// the windows of a run of consecutive items, an item being a query (K1) or a
+// (query, level) pair in query-major order (K2), so that its outputs are one
+// contiguous span of `out`. Three phases, with a block barrier between them:
+//   1. each window's column taps (a) and row taps (b), one thread each, with
+//      window_value's arithmetic of ops/corr.py::sample_corr_window:
+//      px = fl(cx + (a - r)), x0 = floor(px), wx = px - x0, the clamp to
+//      [-2, W] in float before the int cast, the in-bounds test of tap x0 and
+//      of tap x0 + 1; and the window's box corner (floor(cx) - r, floor(cy) - r),
+//      clipped in float before the int cast, so that far and NaN centres (all
+//      their taps out of bounds) never reach it;
+//   2. the box of (K+2) x (K+2) pixels from that corner, where it lies in the
+//      level, copied into shared memory one box row to a thread, as the
+//      16-byte-aligned chunks of the level's row that hold it (cp.async: no
+//      registers, every copy of the block in flight at once; a chunk reads at
+//      most 15 bytes beside the pixels it is for, inside their 16-byte-aligned
+//      unit of the allocation, and they are never used). K+2, not K+1:
+//      fl(cx + (a - r)) may round up across an integer, so x0 is
+//      floor(cx) + (a - r) or one more, never less (for any centre whose taps
+//      can be in bounds, |c| < 2^23), and the taps of one axis span
+//      floor(c) - r .. floor(c) + r + 2. A box row keeps where its column 0
+//      fell in its first chunk (rowoff);
+//   3. the outputs, one thread to a window row b, its two tap rows in
+//      registers, for a = 0 .. K-1: each tap reads the box cell that its tap
+//      index from phase 1 addresses, or, out of bounds, a zero: the zero
+//      column run after each box row's chunks, or the zero row after the box;
+//      t00 = (v00*(1-wy))*(1-wx), t01, t10, t11, summed ((t00+t01)+t10)+t11,
+//      one rounding to the output type.
+// Every operation is the plain version's, in its order, without fused
+// multiply-adds (__fmul_rn / __fadd_rn), so the kernels agree with it bit for
+// bit. Chunk bytes outside the box or the level are never read: only
+// in-bounds taps address the chunks. An empty level (K2) gets weights of 0
+// and every tap on a zero: zeros, as the plain version returns.
+//
+// The window side K is a template constant for radius 3 and 4 (RAFT-small and
+// RAFT-standard), so that the index arithmetic of every phase is by constants;
+// any other radius runs the same code with K from the radius.
+//
+// Bound on the card: bytes. A query's row is read by no other query, so
+// shared memory buys reuse only inside a window: each staged pixel serves up
+// to four taps, and a box row of 11 bf16 touches one or two 32-byte sectors.
+// Whole chunks, not pixels: staged pixel by pixel, the copies' instructions
+// and their loads' latency took most of the time (PERF.md §6). With
+// chunks, K1 runs as fast without phase 3's arithmetic as with it: the copies
+// bind it, at about 2 TB/s counted in 64-byte units of the rows they touch.
+
+constexpr int kMaxWindows = 16;      // windows a block at most (16 beat 12, 24 and 32)
+constexpr int kSmemTarget = 49152;   // shared memory a block aims at (no opt-in below it)
+constexpr size_t kMaxSmem = 232448;  // shared memory a block can have on Hopper
+
+struct CoarseLevels {
+  const void* corr[kMaxLevels];
+  int H[kMaxLevels];
+  int W[kMaxLevels];
+  float scale[kMaxLevels];  // 1 / 2^level, exact
+  int n;
+};
+
+struct Window {     // a window's level row and box corner
+  const void* row;  // the query's [H, W] row of the level
+  int bx, by, H, W;
+};
+
+// A window's box in shared memory, for window side K over pixels of es bytes:
+// S = K+2 rows of RP elements (the NCH 16-byte chunks of V elements that a
+// row of S pixels can touch, then zeros, at least S + V of them), and a row
+// of zeros.
+struct BoxLayout {
+  int S, V, NCH, RP, box;  // box: elements of one window's box
+};
+__host__ __device__ constexpr BoxLayout box_layout(int K, int es) {
+  const int S = K + 2, V = 16 / es;
+  const int NCH = (S + 2 * V - 2) / V;
+  // the row pitch in 16-byte units, made odd: neighbouring rows (and the
+  // windows' boxes) then start on other banks
+  const int units = (NCH * V + S + 2 * V - 1) / V;
+  const int RP = (units | 1) * V;
+  return BoxLayout{S, V, NCH, RP, (S + 1) * RP};
+}
+// shared memory of one window: its taps, its box, its Window and its rowoff
+__host__ __device__ constexpr size_t window_smem(int K, int es) {
+  return 2 * K * sizeof(float4) + (size_t)box_layout(K, es).box * es + sizeof(Window) +
+         (K + 2) * sizeof(int);
+}
+
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void wait_copies() { asm volatile("cp.async.wait_all;\n" ::); }
+
+// The windows of items [blockIdx.x * nw, ...): K1 when !kCoarse (one level,
+// coords level-scaled), K2 when kCoarse (lv.n levels, coords level-0, item
+// = query * lv.n + level). KC: the window side K, or 0 to take it from the
+// radius.
+template <typename TIn, typename TOut, int KC, bool kCoarse>
+__device__ __forceinline__ void lookup_windows(const CoarseLevels& lv,
+                                               const float* __restrict__ coords,
+                                               TOut* __restrict__ out, int64_t n_items,
+                                               int radius, int nw) {
+  constexpr int es = sizeof(TIn);
+  const int K = KC > 0 ? KC : 2 * radius + 1;
+  const BoxLayout L = box_layout(K, es);
+  const int S = L.S, KK = K * K;
+  extern __shared__ float4 smem[];
+  float4* taps = smem;                                           // [nw][2K]
+  TIn* boxes = reinterpret_cast<TIn*>(taps + nw * 2 * K);        // [nw][L.box]
+  Window* win = reinterpret_cast<Window*>(boxes + nw * L.box);   // [nw]
+  int* rowoff = reinterpret_cast<int*>(win + nw);                // [nw][S]
+  const int64_t first = (int64_t)blockIdx.x * nw;
+  const int n_win = (int)(n_items - first < nw ? n_items - first : nw);
+
+  // 1. taps and box corners; zeros in the boxes
+  uint4* zero = reinterpret_cast<uint4*>(boxes);
+  for (int e = threadIdx.x; e < n_win * L.box * es / 16; e += kThreads)
+    zero[e] = make_uint4(0, 0, 0, 0);
+  const int64_t q_first = kCoarse ? first / lv.n : first;  // item first = q_first * n + l_first
+  const int l_first = (int)(first - q_first * (kCoarse ? lv.n : 1));
+  for (int e = threadIdx.x; e < n_win * 2 * K; e += kThreads) {
+    const int w = e / (2 * K), i = e - w * (2 * K);
+    const int dq = kCoarse ? (l_first + w) / lv.n : w;
+    const int64_t q = q_first + dq;
+    const int li = kCoarse ? l_first + w - dq * lv.n : 0;
+    const int H = lv.H[li], W = lv.W[li];
+    float cx = coords[2 * q], cy = coords[2 * q + 1];
+    if (kCoarse) {
+      cx = __fmul_rn(cx, lv.scale[li]);
+      cy = __fmul_rn(cy, lv.scale[li]);
+    }
+    const float lo = -(float)(K + 2);
+    const int bx = (int)fminf(fmaxf(floorf(cx) - (float)radius, lo), (float)W);
+    const int by = (int)fminf(fmaxf(floorf(cy) - (float)radius, lo), (float)H);
+    if (i == 0)
+      win[w] = Window{static_cast<const TIn*>(lv.corr[li]) + q * ((int64_t)H * W), bx, by, H, W};
+    const bool col = i < K;
+    const int n = col ? W : H, corner = col ? bx : by;
+    // out of bounds: a column of the zero run after every box row, or the zero row
+    const int oob = col ? L.NCH * L.V + S : S;
+    float wt = 0.0f, om = 0.0f;
+    int t0 = oob, t1 = oob;
+    if (H > 0 && W > 0) {
+      const float p = __fadd_rn(col ? cx : cy, (float)((col ? i : i - K) - radius));
+      const float p0 = floorf(p);
+      wt = __fsub_rn(p, p0);
+      om = __fsub_rn(1.0f, wt);
+      const int pi = (int)fminf(fmaxf(p0, -2.0f), (float)n);
+      if (pi >= 0 && pi <= n - 1) t0 = pi - corner;
+      if (pi + 1 >= 0 && pi + 1 <= n - 1) t1 = pi + 1 - corner;
+    }
+    taps[w * 2 * K + i] = make_float4(__int_as_float(t0), __int_as_float(t1), wt, om);
+  }
+  __syncthreads();
+
+  // 2. the box rows inside their level, as the 16-byte chunks that hold them
+  for (int e = threadIdx.x; e < n_win * S; e += kThreads) {
+    const int w = e / S, r = e - w * S;
+    const Window m = win[w];
+    const int y = m.by + r, x_lo = max(m.bx, 0), x_hi = min(m.bx + S, m.W);
+    int off = 0;
+    if ((unsigned)y < (unsigned)m.H && x_lo < x_hi) {
+      const TIn* row = static_cast<const TIn*>(m.row) + (int64_t)y * m.W;
+      const uintptr_t lo = reinterpret_cast<uintptr_t>(row + x_lo);
+      const uintptr_t a = lo & ~(uintptr_t)15;
+      // at most L.NCH chunks: the S pixels and up to V - 1 before them
+      const int nch = (int)((reinterpret_cast<uintptr_t>(row + x_hi - 1) - a) >> 4) + 1;
+      off = (int)((lo - a) / es) - (x_lo - m.bx);  // where box column 0 falls
+      TIn* dst = boxes + w * L.box + r * L.RP;
+      for (int j = 0; j < nch; ++j)
+        copy16_async(dst + j * L.V, reinterpret_cast<const void*>(a + 16 * j));
+    }
+    rowoff[w * S + r] = off;
+  }
+  wait_copies();
+  __syncthreads();
+
+  // 3. the outputs: the block's span of out, one thread to a window row b
+  TOut* o = out + first * KK;
+  for (int e = threadIdx.x; e < n_win * K; e += kThreads) {
+    const int w = e / K, b = e - w * K;
+    const float4 y = taps[w * 2 * K + K + b];
+    const int y0 = __float_as_int(y.x), y1 = __float_as_int(y.y);
+    const TIn* bw = boxes + w * L.box;
+    const TIn* row0 = bw + y0 * L.RP + (y0 < S ? rowoff[w * S + y0] : 0);
+    const TIn* row1 = bw + y1 * L.RP + (y1 < S ? rowoff[w * S + y1] : 0);
+    TOut* ob = o + w * KK + b;
+#pragma unroll
+    for (int a = 0; a < K; ++a) {
+      const float4 x = taps[w * 2 * K + a];
+      const int c0 = __float_as_int(x.x), c1 = __float_as_int(x.y);
+      const float t00 = __fmul_rn(__fmul_rn(load_f(row0 + c0), y.w), x.w);
+      const float t01 = __fmul_rn(__fmul_rn(load_f(row0 + c1), y.w), x.z);
+      const float t10 = __fmul_rn(__fmul_rn(load_f(row1 + c0), y.z), x.w);
+      const float t11 = __fmul_rn(__fmul_rn(load_f(row1 + c1), y.z), x.z);
+      store_f(ob + a * K, __fadd_rn(__fadd_rn(__fadd_rn(t00, t01), t10), t11));
+    }
+  }
+}
+
+// K1: corr [BQ, H, W] (lv.corr[0], lv.H[0], lv.W[0]), coords [BQ, 2]
+// level-scaled, out [BQ, K*K].
+template <typename TIn, typename TOut, int KC>
+__global__ void __launch_bounds__(kThreads)
+    lookup_level_kernel(CoarseLevels lv, const float* __restrict__ coords,
+                        TOut* __restrict__ out, int64_t bq_total, int radius, int nw) {
+  lookup_windows<TIn, TOut, KC, false>(lv, coords, out, bq_total, radius, nw);
+}
+
+// K2: levels [BQ, H_i, W_i], coords [BQ, 2] level-0, out [BQ, n*K*K].
+template <typename TIn, typename TOut, int KC>
+__global__ void __launch_bounds__(kThreads)
+    coarse_fused_kernel(CoarseLevels lv, const float* __restrict__ coords,
+                        TOut* __restrict__ out, int64_t bq_total, int radius, int nw) {
+  lookup_windows<TIn, TOut, KC, true>(lv, coords, out, bq_total * lv.n, radius, nw);
+}
+
+// Windows too wide for their box to fit in shared memory (a radius above
+// about 80): one thread per output value, the plain version's arithmetic tap
+// by tap, each tap read from the level's row.
 template <typename T>
-__device__ __forceinline__ float window_value(const T* __restrict__ row, int H,
-                                              int W, float cx, float cy, int a,
-                                              int b, int radius) {
+__device__ __forceinline__ float window_value(const T* __restrict__ row, int H, int W, float cx,
+                                              float cy, int a, int b, int radius) {
   const float px = __fadd_rn(cx, (float)(a - radius));
   const float py = __fadd_rn(cy, (float)(b - radius));
   const float x0 = floorf(px);
   const float y0 = floorf(py);
   const float wx = __fsub_rn(px, x0);
   const float wy = __fsub_rn(py, y0);
-  // Clamp in float before the int cast: a cast of a far out-of-range float is
-  // undefined. [-2, W] keeps both x0 and x0 + 1 on their side of the bounds.
+  // clamp in float before the int cast: [-2, W] keeps both x0 and x0 + 1 on
+  // their side of the bounds
   const int xi = (int)fminf(fmaxf(x0, -2.0f), (float)W);
   const int yi = (int)fminf(fmaxf(y0, -2.0f), (float)H);
   const bool x0in = xi >= 0 && xi <= W - 1;
@@ -87,38 +297,11 @@ __device__ __forceinline__ float window_value(const T* __restrict__ row, int H,
   return __fadd_rn(__fadd_rn(__fadd_rn(t00, t01), t10), t11);
 }
 
-// K1: corr [BQ, H, W], coords [BQ, 2] level-scaled, out [BQ, K*K].
+// K1 and K2 for such windows: out [BQ, n*K*K], output idx of query idx / (n*K*K).
 template <typename TIn, typename TOut>
 __global__ void __launch_bounds__(kThreads)
-    lookup_level_kernel(const TIn* __restrict__ corr,
-                        const float* __restrict__ coords, TOut* __restrict__ out,
-                        int64_t bq_total, int H, int W, int radius) {
-  const int K = 2 * radius + 1;
-  const int KK = K * K;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= bq_total * KK) return;
-  const int64_t q = idx / KK;
-  const int k = (int)(idx - q * KK);
-  const int a = k / K;
-  const int b = k - a * K;
-  const TIn* row = corr + q * ((int64_t)H * W);
-  store_f(out + idx,
-          window_value(row, H, W, coords[2 * q], coords[2 * q + 1], a, b, radius));
-}
-
-struct CoarseLevels {
-  const void* corr[kMaxLevels];
-  int H[kMaxLevels];
-  int W[kMaxLevels];
-  float scale[kMaxLevels];  // 1 / 2^level, exact
-  int n;
-};
-
-// K2: levels [BQ, H_i, W_i], coords [BQ, 2] level-0, out [BQ, n*K*K].
-template <typename TIn, typename TOut>
-__global__ void __launch_bounds__(kThreads)
-    coarse_fused_kernel(CoarseLevels lv, const float* __restrict__ coords,
-                        TOut* __restrict__ out, int64_t bq_total, int radius) {
+    wide_lookup_kernel(CoarseLevels lv, const float* __restrict__ coords,
+                       TOut* __restrict__ out, int64_t bq_total, int radius) {
   const int K = 2 * radius + 1;
   const int KK = K * K;
   const int per_q = lv.n * KK;
@@ -132,11 +315,11 @@ __global__ void __launch_bounds__(kThreads)
   const int W = lv.W[li];
   float v = 0.0f;  // an empty level (floor-mode pooling) is all out of bounds
   if (H > 0 && W > 0) {
-    const float s = lv.scale[li];
+    const float s = lv.scale[li];  // 1 for K1, whose coords come level-scaled
     const TIn* row = static_cast<const TIn*>(lv.corr[li]) + q * ((int64_t)H * W);
     const int a = k / K;
-    v = window_value(row, H, W, __fmul_rn(coords[2 * q], s),
-                     __fmul_rn(coords[2 * q + 1], s), a, k - a * K, radius);
+    v = window_value(row, H, W, __fmul_rn(coords[2 * q], s), __fmul_rn(coords[2 * q + 1], s), a,
+                     k - a * K, radius);
   }
   store_f(out + idx, v);
 }
@@ -284,21 +467,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-bool grid_for(int64_t total, unsigned* blocks) {
-  const int64_t n = (total + kThreads - 1) / kThreads;
-  if (n > 0x7fffffff) return false;
-  *blocks = (unsigned)n;
-  return true;
-}
-
-template <typename TIn, typename TOut>
-void launch_level(const void* corr, const void* coords, void* out, int64_t bq,
-                  int H, int W, int radius, unsigned blocks, cudaStream_t s) {
-  lookup_level_kernel<TIn, TOut><<<blocks, kThreads, 0, s>>>(
-      static_cast<const TIn*>(corr), static_cast<const float*>(coords),
-      static_cast<TOut*>(out), bq, H, W, radius);
-}
-
 template <typename TG, typename TOut>
 int launch_level_bwd(const void* coords, const void* g, void* dcorr, int64_t n, int H,
                      int W, int radius, cudaStream_t s) {
@@ -314,11 +482,58 @@ int launch_level_bwd(const void* coords, const void* g, void* dcorr, int64_t n, 
   return (int)cudaGetLastError();
 }
 
-template <typename TIn, typename TOut>
-void launch_coarse(const CoarseLevels& lv, const void* coords, void* out,
-                   int64_t bq, int radius, unsigned blocks, cudaStream_t s) {
-  coarse_fused_kernel<TIn, TOut><<<blocks, kThreads, 0, s>>>(
-      lv, static_cast<const float*>(coords), static_cast<TOut*>(out), bq, radius);
+// K1 (!kCoarse) or K2 over bq queries: K a template constant KC, or (KC = 0)
+// from the radius; nw windows a block: at most kMaxWindows, one a thread in
+// phase 3, and what fits in kSmemTarget (at least one). A window whose box
+// does not fit in a block's shared memory goes to wide_lookup_kernel.
+template <typename TIn, typename TOut, bool kCoarse, int KC>
+int launch_windows_k(const CoarseLevels& lv, const void* coords, void* out, int64_t bq,
+                     int radius, cudaStream_t s) {
+  auto kernel = kCoarse ? coarse_fused_kernel<TIn, TOut, KC> : lookup_level_kernel<TIn, TOut, KC>;
+  const int K = 2 * radius + 1;
+  const size_t per_window = window_smem(K, sizeof(TIn));
+  if (per_window > kMaxSmem) {  // a box too wide for shared memory
+    const int64_t threads = bq * lv.n * K * K;
+    if ((threads + kThreads - 1) / kThreads > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+    wide_lookup_kernel<TIn, TOut><<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+        lv, static_cast<const float*>(coords), static_cast<TOut*>(out), bq, radius);
+    return (int)cudaGetLastError();
+  }
+  const int nw = (int)std::max<size_t>(
+      1, std::min<size_t>(std::min(kMaxWindows, kThreads / K), kSmemTarget / per_window));
+  const size_t smem = per_window * nw;
+  if (smem > (size_t)kSmemTarget) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int64_t blocks = ((kCoarse ? bq * lv.n : bq) + nw - 1) / nw;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)blocks, kThreads, smem, s>>>(lv, static_cast<const float*>(coords),
+                                                  static_cast<TOut*>(out), bq, radius, nw);
+  return (int)cudaGetLastError();
+}
+
+template <typename TIn, typename TOut, bool kCoarse>
+int launch_windows(const CoarseLevels& lv, const void* coords, void* out, int64_t bq,
+                   int radius, cudaStream_t s) {
+  switch (radius) {
+    case 3: return launch_windows_k<TIn, TOut, kCoarse, 7>(lv, coords, out, bq, radius, s);
+    case 4: return launch_windows_k<TIn, TOut, kCoarse, 9>(lv, coords, out, bq, radius, s);
+    default: return launch_windows_k<TIn, TOut, kCoarse, 0>(lv, coords, out, bq, radius, s);
+  }
+}
+
+template <bool kCoarse>
+int launch_windows(const CoarseLevels& lv, const void* coords, void* out, int64_t bq,
+                   int radius, int corr_dtype, int out_dtype, cudaStream_t s) {
+  switch (corr_dtype * 2 + out_dtype) {
+    case 0: return launch_windows<float, float, kCoarse>(lv, coords, out, bq, radius, s);
+    case 1: return launch_windows<float, __nv_bfloat16, kCoarse>(lv, coords, out, bq, radius, s);
+    case 2: return launch_windows<__nv_bfloat16, float, kCoarse>(lv, coords, out, bq, radius, s);
+    default:
+      return launch_windows<__nv_bfloat16, __nv_bfloat16, kCoarse>(lv, coords, out, bq, radius, s);
+  }
 }
 
 }  // namespace
@@ -331,19 +546,16 @@ extern "C" int raft_corr_lookup_level(const void* corr, const void* coords,
   if (B < 0 || Q < 0 || H <= 0 || W <= 0 || radius < 0 || corr_dtype < 0 ||
       corr_dtype > 1 || out_dtype < 0 || out_dtype > 1)
     return (int)cudaErrorInvalidValue;
-  const int K = 2 * radius + 1;
   const int64_t bq = (int64_t)B * Q;
-  unsigned blocks;
   if (bq == 0) return (int)cudaSuccess;
-  if (!grid_for(bq * K * K, &blocks)) return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (corr_dtype * 2 + out_dtype) {
-    case 0: launch_level<float, float>(corr, coords, out, bq, H, W, radius, blocks, s); break;
-    case 1: launch_level<float, __nv_bfloat16>(corr, coords, out, bq, H, W, radius, blocks, s); break;
-    case 2: launch_level<__nv_bfloat16, float>(corr, coords, out, bq, H, W, radius, blocks, s); break;
-    default: launch_level<__nv_bfloat16, __nv_bfloat16>(corr, coords, out, bq, H, W, radius, blocks, s); break;
-  }
-  return (int)cudaGetLastError();
+  CoarseLevels lv = {};
+  lv.corr[0] = corr;
+  lv.H[0] = H;
+  lv.W[0] = W;
+  lv.scale[0] = 1.0f;
+  lv.n = 1;
+  return launch_windows<false>(lv, coords, out, bq, radius, corr_dtype, out_dtype,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // level_ptrs, level_h, level_w, level_index: host arrays of n_levels entries
@@ -367,20 +579,10 @@ extern "C" int raft_corr_lookup_coarse_fused(
     if (used && (lv.H[i] < 0 || lv.W[i] < 0 || level_index[i] < 0))
       return (int)cudaErrorInvalidValue;
   }
-  const int K = 2 * radius + 1;
   const int64_t bq = (int64_t)B * Q;
-  unsigned blocks;
   if (bq == 0) return (int)cudaSuccess;
-  if (!grid_for(bq * n_levels * K * K, &blocks))
-    return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (corr_dtype * 2 + out_dtype) {
-    case 0: launch_coarse<float, float>(lv, coords, out, bq, radius, blocks, s); break;
-    case 1: launch_coarse<float, __nv_bfloat16>(lv, coords, out, bq, radius, blocks, s); break;
-    case 2: launch_coarse<__nv_bfloat16, float>(lv, coords, out, bq, radius, blocks, s); break;
-    default: launch_coarse<__nv_bfloat16, __nv_bfloat16>(lv, coords, out, bq, radius, blocks, s); break;
-  }
-  return (int)cudaGetLastError();
+  return launch_windows<true>(lv, coords, out, bq, radius, corr_dtype, out_dtype,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // K8: every level in one launch, levels 0..n_levels-1 in order, fp32 output

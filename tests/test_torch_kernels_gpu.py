@@ -25,6 +25,12 @@ version's matmuls: fp32 within max_rel 1e-5; bf16 within one bf16 rounding
 step of the plain value, plus what one flipped rounding of r*h (a bf16 step of
 |rh| < 1, 2^-8) carries through the largest q-gate weight, plus 2e-5 *
 max|ref| for the sums' order. K8 (all levels) repeats K1's operations: exact.
+K1, K2 and K8 are also held bit for bit on hard cases: the training level
+shapes and rows shorter than a window, centres within 1e-6 of integers and
+just below them, far and border rows, 1% +inf volume values (so that a wrong
+pixel under a weight of 0 shows as a NaN), and B*Q of 1, 7 and 1001; and at
+radii that take each other launch route (K from the radius, a block past 48 KB
+of shared memory, the per-output route for a box too wide for a block).
 """
 
 import os
@@ -178,6 +184,124 @@ def test_lookup_bwd_empty_level_launches_nothing(cuda):
     ck.reset_launches()
     assert ck.corr_lookup_level_bwd(coords, g, 0, 3, 3).shape == (1, 5, 0, 3)
     assert ck.LAUNCHES["corr_lookup_level_bwd"] == 0
+
+
+def _hard_centres(rng, n, Hl, Wl, scale=1):
+    """n level-0 centres (x, y) for a level of Hl x Wl at 1/scale: around and
+    inside it, within 1e-6 of integers on both sides, the float just below an
+    integer (where c + (a - r) rounds up across the next integer), rows far
+    out of bounds on both sides, and the border rows."""
+    c = np.stack([rng.uniform(-6, Wl + 5, n), rng.uniform(-6, Hl + 5, n)], -1) * scale
+    c = c.astype(np.float32)
+    m = np.round(c / scale) * scale
+    k = np.arange(n) % 5
+    c[k == 1] = (m + rng.uniform(-1e-6, 1e-6, (n, 2)) * scale)[k == 1]
+    c[k == 2] = np.nextafter(m.astype(np.float32), np.float32(-np.inf))[k == 2]
+    c[k == 3] = m[k == 3]
+    edge = np.arange(n) % 11 == 4
+    c[edge, 0] = (Wl - 1 + rng.choice([-4.5, -0.5, 0.0, 0.5, 3.5, 4.5], edge.sum())) * scale
+    c[edge, 1] = (rng.choice([-4.5, -0.5, 0.0, 0.5, 3.5], edge.sum())) * scale
+    if n > 2:
+        c[1] = 1.0e6
+        c[2] = -1.0e6
+    return c.astype(np.float32)
+
+
+def _volume(rng, B, Q, Hl, Wl, dtype, device):
+    """Seeded normal values with 1% +inf: a tap of weight 0 on an inf reads
+    NaN, so a kernel that reads the wrong pixel there shows."""
+    v = rng.randn(B, Q, Hl, Wl).astype(np.float32)
+    v[rng.rand(*v.shape) < 0.01] = np.inf
+    return torch.from_numpy(v).to(device, dtype)
+
+
+def _assert_same(got, ref):
+    """The same bits: NaN positions and the signs of zeros included."""
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    as_int = torch.int32 if got.element_size() == 4 else torch.int16
+    assert torch.equal(got.view(as_int), ref.view(as_int))
+
+
+LEVEL_SHAPES = [(46, 62), (23, 31), (11, 15), (5, 7), (1, 5), (2, 3), (1, 1)]
+DTYPE_PAIRS = [(v, o) for v in (torch.float32, torch.bfloat16) for o in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("dtypes", DTYPE_PAIRS)
+@pytest.mark.parametrize("radius", [3, 4])
+@pytest.mark.parametrize("hw", LEVEL_SHAPES)
+def test_lookup_level_hard_cases(cuda, hw, radius, dtypes):
+    """K1 bit for bit with its plain version at the training level shapes and
+    rows shorter than a window, on hard centres, for B*Q of 1, 7 and 1001 (a
+    block of 16 windows with a tail)."""
+    vol_dtype, out_dtype = dtypes
+    Hl, Wl = hw
+    rng = np.random.RandomState(Hl * 1000 + Wl * 10 + radius)
+    for B, Q in ((1, 1), (1, 7), (7, 143)):
+        corr = _volume(rng, B, Q, Hl, Wl, vol_dtype, cuda)
+        coords = torch.from_numpy(_hard_centres(rng, B * Q, Hl, Wl).reshape(B, Q, 2)).to(cuda)
+        ck.reset_launches()
+        got = ck.corr_lookup_level(corr, coords, radius, out_dtype)
+        assert ck.LAUNCHES["corr_lookup_level"] == 1
+        _assert_same(got, ck.corr_lookup_level_plain(corr, coords, radius, out_dtype))
+
+
+# level shapes of a pyramid, level 0 first: the 368x496 training shape's and
+# one of rows shorter than a window whose deepest levels are empty
+PYRAMIDS = {"train": [(46, 62), (23, 31), (11, 15), (5, 7)],
+            "tiny": [(2, 5), (1, 2), (0, 1), (0, 0)]}
+
+
+@pytest.mark.parametrize("dtypes", DTYPE_PAIRS)
+@pytest.mark.parametrize("radius", [3, 4])
+@pytest.mark.parametrize("pyramid", sorted(PYRAMIDS))
+def test_lookup_coarse_and_all_levels_hard_cases(cuda, pyramid, radius, dtypes):
+    """K2 (levels 1..3, out_dtype) and K8 (levels 0..3, fp32 out) bit for bit
+    with their plain versions on hard centres at every level (level-0 centres
+    near multiples of 8 are near integers at level 3), for B*Q of 1, 7, 1001."""
+    vol_dtype, out_dtype = dtypes
+    shapes = PYRAMIDS[pyramid]
+    rng = np.random.RandomState(sum(h * 100 + w for h, w in shapes) * 10 + radius)
+    for B, Q in ((1, 1), (1, 7), (7, 143)):
+        levels = [_volume(rng, B, Q, Hl, Wl, vol_dtype, cuda) for Hl, Wl in shapes]
+        scale = 2 ** int(rng.randint(0, 4))
+        c = _hard_centres(rng, B * Q, *shapes[0], scale=1) if scale == 1 else \
+            _hard_centres(rng, B * Q, max(shapes[0][0] // scale, 1), max(shapes[0][1] // scale, 1),
+                          scale=scale)
+        coords = torch.from_numpy(c.reshape(B, Q, 2)).to(cuda)
+        ck.reset_launches()
+        got = ck.corr_lookup_coarse_fused(levels[1:], coords, radius, out_dtype)
+        got8 = ck.corr_pyramid_lookup_cuda_fused(levels, coords.reshape(B, 1, Q, 2), radius)
+        assert ck.LAUNCHES["corr_lookup_coarse_fused"] == 1
+        assert ck.LAUNCHES["corr_lookup_all_levels"] == 1
+        _assert_same(got, ck.corr_lookup_coarse_fused_plain(levels[1:], coords, radius, out_dtype))
+        _assert_same(got8, ck.corr_pyramid_lookup_fused_plain(levels, coords.reshape(B, 1, Q, 2),
+                                                              radius))
+
+
+@pytest.mark.parametrize("dtypes", DTYPE_PAIRS)
+@pytest.mark.parametrize("radius", [2, 5, 50, 120])
+def test_lookup_other_radii(cuda, radius, dtypes):
+    """K1, K2 and K8 bit for bit with their plain versions at radii with no
+    template constant for K, on hard centres at the training level shapes:
+    r = 2 and 5 (several windows a block), r = 50 (one window a block, past
+    48 KB of shared memory, so the launch opts in to more) and r = 120 (a box
+    past a block's shared memory: the per-output route)."""
+    vol_dtype, out_dtype = dtypes
+    shapes = PYRAMIDS["train"]
+    rng = np.random.RandomState(radius * 10 + DTYPE_PAIRS.index(dtypes))
+    for B, Q in ((1, 7),) if radius > 5 else ((1, 7), (7, 143)):
+        levels = [_volume(rng, B, Q, Hl, Wl, vol_dtype, cuda) for Hl, Wl in shapes]
+        coords = torch.from_numpy(_hard_centres(rng, B * Q, *shapes[0]).reshape(B, Q, 2)).to(cuda)
+        ck.reset_launches()
+        got1 = ck.corr_lookup_level(levels[0], coords, radius, out_dtype)
+        got2 = ck.corr_lookup_coarse_fused(levels[1:], coords, radius, out_dtype)
+        got8 = ck.corr_pyramid_lookup_cuda_fused(levels, coords.reshape(B, 1, Q, 2), radius)
+        assert all(ck.LAUNCHES[k] == 1 for k in (
+            "corr_lookup_level", "corr_lookup_coarse_fused", "corr_lookup_all_levels"))
+        _assert_same(got1, ck.corr_lookup_level_plain(levels[0], coords, radius, out_dtype))
+        _assert_same(got2, ck.corr_lookup_coarse_fused_plain(levels[1:], coords, radius, out_dtype))
+        _assert_same(got8, ck.corr_pyramid_lookup_fused_plain(levels, coords.reshape(B, 1, Q, 2),
+                                                              radius))
 
 
 def _ondemand_case(device, h, w, C, dtype, seed, B=2, far=True):

@@ -37,6 +37,7 @@ from torch.profiler import ProfilerActivity, profile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = (
     ("port kernels (lookup, GRU)", re.compile(r"lookup_level_kernel|coarse_fused_kernel|"
+                                              r"wide_lookup_kernel|"
                                               r"lookup_level_bwd_kernel|ondemand_|"
                                               r"gru_pass_|gru_weight_image")),
     ("convolution", re.compile(r"conv|fprop|implicit|dgrad|cudnn|xmma", re.I)),
