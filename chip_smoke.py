@@ -73,16 +73,19 @@ code is not 0):
             their time on a smooth field, ms_smooth). Every kernel is
             timed in an eager loop; K3, about as short as its wrapper's host
             time, is also timed as CUDA-graph replays (with its yardsticks
-            and its four levels of one iteration: the graph_* keys). K4 and
-            K6 are also timed on a smooth field (grid + a bilinear 4x8 field
-            of +-8 px: the ms_smooth key), with the routes K4's tiles took on
-            both inputs; K6's time is its wrapper's whole call, prepass
+            and its four levels of one iteration: the graph_* keys). K4, K5
+            and K6 are also timed on a smooth field (grid + a bilinear 4x8
+            field of +-8 px: the ms_smooth key), with the routes K4's tiles
+            took on both inputs; K6's time is its wrapper's whole call, prepass
             included, and the prepass has a row of its own (both also as
             CUDA-graph replays: graph_ms). K7's
             yardstick is the unfused SepConvGRU pass (three cuDNN convs and
-            their elementwise work); its row also gives the fp32 variant's
-            time at the training shape, and its log line the weight bytes
-            per launch worked out from the launch plan. K8's yardstick is
+            their elementwise work); its row also gives the fp32 route's
+            time per launch at the batch-2 training shape (fp32_ms) and the
+            batch-1 serving shape (fp32_serve_ms), each beside the unfused
+            fp32 pass with TF32 off (fp32_library_ms, fp32_serve_library_ms)
+            and its bound at the fp32 CUDA-core rate, and its log line the
+            bf16 weight bytes per launch worked out from the launch plan. K8's yardstick is
             the four F.grid_sample calls.
 
 With every phase run (the default) the last two lines are a JSON object of
@@ -1094,12 +1097,13 @@ def _k7_kernel_checks(state):
 
     err, lines = 0.0, []
     # serving (RAFT-standard bf16 at 1024x440, batch 16), training (fp32
-    # chairs-size crop, batch 4), 37-long rows (one ragged fp32 strip of 44;
-    # two bf16 rows to a block), the 1-high and 1-wide levels where each tap
-    # but the centre is padding in one of the passes, and 300-long rows (bf16:
-    # segments of 124 with a 2-position halo); each pass held on the plain
-    # version's own input
+    # chairs-size crop, batch 4 and 2), 37-long rows (fp32: blocks of rows
+    # across lines; two bf16 rows to a block), the 1-high and 1-wide levels
+    # where each tap but the centre is padding in one of the passes, and
+    # 300-long rows (bf16: segments of 124 with a 2-position halo); each pass
+    # held on the plain version's own input
     for B, H, W, dt in ((16, 55, 128, torch.bfloat16), (4, 46, 62, torch.float32),
+                        (2, 46, 62, torch.float32),
                         (1, 8, 37, torch.float32), (1, 8, 37, torch.bfloat16),
                         (2, 1, 37, torch.bfloat16), (2, 37, 1, torch.float32),
                         (1, 3, 300, torch.bfloat16)):
@@ -1610,11 +1614,16 @@ def _time_ondemand(rows):
     n_ops = taps * C * 2 + taps * 6  # the dots, and each tap's cotangent
     common = B * Q * 8 + g.numel() * 2
     detail = f"B={B} Q={Q} C={C} r={radius} bf16 levels 46x62..5x7, {taps:.0f} in-bounds taps;"
-    rows["corr_ondemand_bwd_df1"] = _timing_row(
+    row = _timing_row(
         "corr_ondemand_bwd_df1", lambda: co.corr_ondemand_bwd_df1(levels, coords, g, radius),
         lambda: co.corr_ondemand_bwd_df1_plain(levels, coords, g, radius),
         lambda: torch.autograd.grad(out, [f1_leaf], g, retain_graph=True),
         common + sum(f.numel() for f in levels) * 2 + B * Q * C * 4, n_ops, dt, detail)
+    check_rel("K5 smooth inputs", co.corr_ondemand_bwd_df1(levels, smooth, g, radius),
+              co.corr_ondemand_bwd_df1_plain(levels, smooth, g, radius))
+    row["ms_smooth"] = cuda_ms(lambda: co.corr_ondemand_bwd_df1(levels, smooth, g, radius), 20)
+    rows["corr_ondemand_bwd_df1"] = row
+    log(f"timing corr_ondemand_bwd_df1 on a smooth field: {row['ms_smooth']:.4f} ms")
     row = _timing_row(
         "corr_ondemand_bwd_df2 (the wrapper: prepass and K6)",
         lambda: co.corr_ondemand_bwd_df2(f1, coords, g, shapes, radius),
@@ -1662,7 +1671,8 @@ def _time_k7():
     version on its inputs. The row is per launch: the step's times over 2,
     against the unfused SepConvGRU (six cuDNN convs and their elementwise
     work) on the same NCHW inputs, also over 2. The model's per-step weight
-    preparation (`pass_weights`) is outside the timed call."""
+    preparation (`pass_weights`) is outside the timed call. Then the fp32
+    route pass by pass at the batch-2 training and batch-1 serving shapes."""
     from raft_optical_flow_tpu_torch.kernels import gru_fused as gf
     from raft_optical_flow_tpu_torch.models.update import SepConvGRU
 
@@ -1711,19 +1721,40 @@ def _time_k7():
         f"{lib_h:.4f}, 5x1 {lib_v:.4f}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
         f"weight bytes per launch from the plan (not measured): 1x5 {plan_h / 1e9:.3f} GB, "
         f"5x1 {plan_v / 1e9:.3f} GB")
-    # the fp32 variant (CUDA-core FMAs) at the fp32 training shape: batch 2,
-    # 368x496 -> 46x62
-    del h, x, h1
-    h, x, weights = gru_inputs(2, 46, 62, torch.float32, seed=33)
-    fp32 = []
-    for axis, part in ((2, weights[:6]), (1, weights[6:])):
-        w, b = gf.pass_weights(part, torch.float32)
-        check_k7(f"fp32 timed inputs axis={axis}", gf.gru_pass(h, x, w, b, axis),
-                 gf.gru_pass_plain(h, x, w, b, axis), w)
-        fp32.append(cuda_ms(lambda: gf.gru_pass(h, x, w, b, axis), 10))
-    row.update(fp32_1x5_ms=fp32[0], fp32_5x1_ms=fp32[1], fp32_ms=sum(fp32) / 2)
-    log(f"timing sepconv_gru_pass fp32 (B=2 46x62, CUDA cores): 1x5 {fp32[0]:.4f} ms, 5x1 "
-        f"{fp32[1]:.4f} ms, per launch {row['fp32_ms']:.4f} ms")
+    # the fp32 route (CUDA-core FMAs, two GEMM kernels a launch) at the fp32
+    # training shape (batch 2, 368x496 -> 46x62; the fp32_* keys) and the
+    # batch-1 serving shape (55x128; fp32_serve_*): each pass first held
+    # against the plain version, then kernel, unfused pass, kernel; the
+    # yardstick is the unfused fp32 pass (three cuDNN convs and the gates,
+    # TF32 off), the bound the pass's FMAs at the fp32 CUDA-core rate
+    del h, x, h1, module, hc, xc
+    for key, (B, H, W), seed in (("fp32", (2, 46, 62), 33), ("fp32_serve", (1, 55, 128), 34)):
+        h, x, weights = gru_inputs(B, H, W, torch.float32, seed=seed)
+        module = SepConvGRU(D, X).cuda()
+        with torch.no_grad():
+            for i, name in enumerate(gf.GATES):
+                getattr(module, name).weight.copy_(weights[2 * i])
+                getattr(module, name).bias.copy_(weights[2 * i + 1])
+        hc, xc = h.permute(0, 3, 1, 2).contiguous(), x.permute(0, 3, 1, 2).contiguous()
+        kms, lms = [], []
+        for axis, part, suffix in ((2, weights[:6], "1"), (1, weights[6:], "2")):
+            w, b = gf.pass_weights(part, torch.float32)
+            check_k7(f"{key} timed inputs axis={axis}", gf.gru_pass(h, x, w, b, axis),
+                     gf.gru_pass_plain(h, x, w, b, axis), w)
+            k_a = cuda_ms(lambda: gf.gru_pass(h, x, w, b, axis), 10)
+            with torch.no_grad(), gf._full_fp32():
+                lms.append(cuda_ms(lambda: module._pass(hc, xc, suffix), 10))
+            k_b = cuda_ms(lambda: gf.gru_pass(h, x, w, b, axis), 10)
+            kms.append(min(k_a, k_b))
+        bound = 2 * B * H * W * 3 * 5 * (D + X) * D / FP32_FLOPS_PER_S * 1e3
+        row.update({f"{key}_1x5_ms": kms[0], f"{key}_5x1_ms": kms[1], f"{key}_ms": sum(kms) / 2,
+                    f"{key}_library_1x5_ms": lms[0], f"{key}_library_5x1_ms": lms[1],
+                    f"{key}_library_ms": sum(lms) / 2, f"{key}_bound_ms": bound})
+        log(f"timing sepconv_gru_pass {key} (B={B} {H}x{W} fp32, CUDA cores): 1x5 {kms[0]:.4f} "
+            f"ms, 5x1 {kms[1]:.4f} ms, per launch {row[key + '_ms']:.4f} ms; unfused fp32 pass "
+            f"(cuDNN, TF32 off) 1x5 {lms[0]:.4f} ms, 5x1 {lms[1]:.4f} ms; bound {bound:.4f} ms "
+            f"(operations: {2 * B * H * W * 3 * 5 * (D + X) * D / 1e9:.3f} GFLOP at 67 TFLOP/s)")
+        del h, x, module, hc, xc
     return row
 
 
@@ -1876,7 +1907,9 @@ def main() -> int:
     for name, keys in (("corr_lookup_level", ("ms_smooth",)),
                        ("corr_lookup_coarse_fused", ("ms_smooth",)),
                        ("corr_ondemand_fwd", ("ms_smooth", "routes", "routes_smooth")),
+                       ("corr_ondemand_bwd_df1", ("ms_smooth",)),
                        ("corr_ondemand_bwd_df2", ("ms_smooth", "graph_ms")),
+                       ("sepconv_gru_pass", ("fp32_ms", "fp32_library_ms")),
                        ("corr_ondemand_df2_plan", ("graph_ms",))):
         by_name[name].update({k: state["timing"][name][k] for k in keys})
     k3 = state["timing"]["corr_lookup_level_bwd"]

@@ -76,8 +76,10 @@
 // fp32 operands keep the warp-per-query body on the CUDA cores: the tensor
 // cores would round them to TF32, and the fp32 gate (max_rel 2e-5) and
 // fp32 policy do not allow that.
-// K5 does the products of K4 backwards, a warp per query. K6 sums over
-// queries for each fmap2 pixel after a prepass (see their notes).
+// K5 does the products of K4 backwards: with bf16 fmap2 on K4's tiles and
+// staged boxes, drows times the staged pixels on the tensor cores; with fp32
+// fmap2 a warp per query on the CUDA cores. K6 sums over queries for each
+// fmap2 pixel after a prepass (see their notes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -346,6 +348,78 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// Stages one unit of a box row: bw pixels x kUnitC channels from src (pixel
+// stride C elements) into shared memory at dst, PITCH bytes a pixel, 16 bytes
+// a cp.async, by the block's NTHREADS threads. K4 and K5 stage their boxes
+// with it.
+template <int PITCH, int NTHREADS>
+__device__ __forceinline__ void stage_unit(uint32_t dst, const __nv_bfloat16* src, int bw, int C,
+                                           int tid) {
+  for (int e = tid; e < bw * (kUnitC / 8); e += NTHREADS) {
+    const int px = e / (kUnitC / 8), v = e % (kUnitC / 8);
+    cp_async16(dst + px * PITCH + v * 16, src + (int64_t)px * C + v * 8);
+  }
+}
+
+// The box of a tile of kTileWarps warps at one level. Each lane gives the
+// in-bounds tap range of one query of its warp (has: any; every query of the
+// warp on some lane); the warp's union (wx0..wy1), then the block's (bx0..,
+// through wrange, with a __syncthreads), and whether the tile stages it
+// (tiled) or takes the per-query route. Called by every thread.
+struct TileBox {
+  int wx0, wx1, wy0, wy1;  // the warp's union (warp_has: not empty)
+  int bx0, by0, bw, bh;    // the block's (bw = bh = 0: empty)
+  bool warp_has, tiled;
+};
+__device__ __forceinline__ TileBox tile_box(bool has, int xlo, int xhi, int ylo, int yhi,
+                                            int (*wrange)[5], int warp, int lane) {
+  TileBox t;
+  t.wx0 = __reduce_min_sync(kFull, has ? xlo : INT_MAX);
+  t.wx1 = __reduce_max_sync(kFull, has ? xhi : INT_MIN);
+  t.wy0 = __reduce_min_sync(kFull, has ? ylo : INT_MAX);
+  t.wy1 = __reduce_max_sync(kFull, has ? yhi : INT_MIN);
+  t.warp_has = t.wx0 <= t.wx1;
+  if (lane == 0) {
+    wrange[warp][0] = t.wx0; wrange[warp][1] = t.wx1;
+    wrange[warp][2] = t.wy0; wrange[warp][3] = t.wy1;
+    wrange[warp][4] = !t.warp_has || t.wx1 - t.wx0 + 1 <= kMaxWarpCols;
+  }
+  __syncthreads();
+  int bx0 = INT_MAX, bx1 = INT_MIN, by0 = INT_MAX, by1 = INT_MIN;
+  bool fits = true;
+#pragma unroll
+  for (int w = 0; w < kTileWarps; ++w) {
+    bx0 = min(bx0, wrange[w][0]); bx1 = max(bx1, wrange[w][1]);
+    by0 = min(by0, wrange[w][2]); by1 = max(by1, wrange[w][3]);
+    fits = fits && wrange[w][4];
+  }
+  const bool any = bx0 <= bx1;
+  t.bx0 = bx0;
+  t.by0 = by0;
+  t.bw = any ? bx1 - bx0 + 1 : 0;
+  t.bh = any ? by1 - by0 + 1 : 0;
+  t.tiled = !any || (fits && t.bw <= kMaxBoxW && t.bh <= kMaxBoxRows);
+  return t;
+}
+
+// The tiles of K4's and K5's bf16 kernels: the query grid (level 0's when the
+// queries are its pixels, else rows of 16), tiles of kTileWarps rows x
+// kTileCols queries of it per batch element.
+struct TileGrid {
+  int grid_w, tiles_x, tiles_per_b;
+  int64_t tiles;
+};
+TileGrid tile_grid(const Levels& lv, int B, int Q) {
+  TileGrid tg;
+  tg.grid_w = (lv.W[0] > 0 && (int64_t)lv.H[0] * lv.W[0] == Q) ? lv.W[0] : kTileCols;
+  tg.tiles_x = (tg.grid_w + kTileCols - 1) / kTileCols;
+  const int64_t grid_h = ((int64_t)Q + tg.grid_w - 1) / tg.grid_w;
+  const int64_t per_b = tg.tiles_x * ((grid_h + kTileWarps - 1) / kTileWarps);
+  tg.tiles = B * per_b;
+  tg.tiles_per_b = per_b > 0x7fffffff ? 0 : (int)per_b;
+  return tg;
+}
+
 // ---------------------------------------------------------------------------
 // K4, bf16 operands: the tiled kernel (see the note at the top). The queries
 // are read as a grid of grid_w columns (query q at row q / grid_w, column
@@ -425,29 +499,11 @@ __global__ void __launch_bounds__(kTileWarps * 32, 3)
       const int xlo = max(tp.x, 0), xhi = min(tp.x + NT - 1, W - 1);
       const int ylo = max(tp.y, 0), yhi = min(tp.y + NT - 1, H - 1);
       const bool has = valid_m && xlo <= xhi && ylo <= yhi;
-      // the warp's box: the union of its queries' in-bounds taps
-      const int wx0 = __reduce_min_sync(kFull, has ? xlo : INT_MAX);
-      const int wx1 = __reduce_max_sync(kFull, has ? xhi : INT_MIN);
-      const int wy0 = __reduce_min_sync(kFull, has ? ylo : INT_MAX);
-      const int wy1 = __reduce_max_sync(kFull, has ? yhi : INT_MIN);
-      const bool warp_has = wx0 <= wx1;
-      if (lane == 0) {
-        wrange[warp][0] = wx0; wrange[warp][1] = wx1;
-        wrange[warp][2] = wy0; wrange[warp][3] = wy1;
-        wrange[warp][4] = !warp_has || wx1 - wx0 + 1 <= kMaxWarpCols;
-      }
-      __syncthreads();
-      int bx0 = INT_MAX, bx1 = INT_MIN, by0 = INT_MAX, by1 = INT_MIN;
-      bool fits = true;
-#pragma unroll
-      for (int w = 0; w < kTileWarps; ++w) {
-        bx0 = min(bx0, wrange[w][0]); bx1 = max(bx1, wrange[w][1]);
-        by0 = min(by0, wrange[w][2]); by1 = max(by1, wrange[w][3]);
-        fits = fits && wrange[w][4];
-      }
-      const bool any = bx0 <= bx1;
-      const int bw = any ? bx1 - bx0 + 1 : 0, bh = any ? by1 - by0 + 1 : 0;
-      const bool tiled = !any || (fits && bw <= kMaxBoxW && bh <= kMaxBoxRows);
+      // the warp's box (the union of its queries' in-bounds taps), the block's
+      const TileBox box = tile_box(has, xlo, xhi, ylo, yhi, wrange, warp, lane);
+      const int wx0 = box.wx0, wx1 = box.wx1, wy0 = box.wy0, wy1 = box.wy1;
+      const int bx0 = box.bx0, by0 = box.by0, bw = box.bw, bh = box.bh;
+      const bool warp_has = box.warp_has, tiled = box.tiled;
       route = tiled ? 1 : 2;
       __syncwarp();
       if (tiled) {
@@ -462,12 +518,9 @@ __global__ void __launch_bounds__(kTileWarps * 32, 3)
         const uint32_t stage_s = smem_addr(stage);
         auto issue = [&](int u) {
           const int y = by0 + u / CU, cu = u % CU;
-          const __nv_bfloat16* src = f2 + ((int64_t)y * W + bx0) * C + cu * kUnitC;
-          const uint32_t dst = stage_s + (u % kStages) * kStageBytes;
-          for (int e = tid; e < bw * (kUnitC / 8); e += kTileWarps * 32) {
-            const int px = e / (kUnitC / 8), v = e % (kUnitC / 8);
-            cp_async16(dst + px * kPixBytes + v * 16, src + (int64_t)px * C + v * 8);
-          }
+          stage_unit<kPixBytes, kTileWarps * 32>(stage_s + (u % kStages) * kStageBytes,
+                                                 f2 + ((int64_t)y * W + bx0) * C + cu * kUnitC,
+                                                 bw, C, tid);
         };
 #pragma unroll
         for (int u = 0; u < kStages - 1; ++u) {
@@ -599,17 +652,46 @@ __device__ __forceinline__ float tap_cotangent(float gy, int i, float fx) {
   return (1.0f - fx) * gi + fx * gm;
 }
 
+// One query at one level of K5 on the CUDA cores: lane owns CPL channels of
+// df1 (f2 already offset to them; C the pixel stride) and adds drows * f2
+// over the in-bounds taps, rows then columns in order. gl: the query's
+// cotangent at this level.
+template <typename T, typename TG, int R, int CPL>
+__device__ __forceinline__ void df1_query_level(float* acc, const T* __restrict__ f2, int H,
+                                                int W, int C, const Taps& t,
+                                                const TG* __restrict__ gl, float inv_sqrt_c,
+                                                int lane) {
+  constexpr int NT = 2 * R + 2;
+  for (int j = 0; j < NT; ++j) {
+    const int y = t.y + j;
+    if (y < 0 || y >= H) continue;  // uniform over the warp
+    const float gy = row_cotangent<TG, R>(gl, j, t.fy, inv_sqrt_c, lane);
+    const T* row = f2 + (int64_t)y * W * C;
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const float d = tap_cotangent(gy, i, t.fx);
+      const int x = t.x + i;
+      if (x >= 0 && x < W) {
+        float v[CPL];
+        load_vec<CPL>(row + (int64_t)x * C, v);
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) acc[c] = fmaf(d, v[c], acc[c]);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
-// K5. One warp per query; lane owns channels [lane*CPL, +CPL) of df1 in
-// registers and sums drows * f2 over every level and in-bounds tap, levels
-// and taps in order. Every df1 element written once: no atomics, no memset.
+// K5, fp32 fmap2: one warp per query; lane owns channels [lane*CPL, +CPL) of
+// df1 in registers and sums drows * f2 over every level and in-bounds tap,
+// levels and taps in order. Every df1 element written once: no atomics, no
+// memset.
 template <typename T, typename TG, int R, int CPL>
 __global__ void __launch_bounds__(kWarps * 32)
     ondemand_bwd_df1_kernel(Levels lv, const float* __restrict__ coords,
                             const TG* __restrict__ g, float* __restrict__ df1,
                             int64_t bq_total, int Q, float inv_sqrt_c) {
   constexpr int K = 2 * R + 1;
-  constexpr int NT = 2 * R + 2;
   constexpr int C = 32 * CPL;
   const int lane = threadIdx.x & 31;
   const int64_t bq = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -623,30 +705,278 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int l = 0; l < lv.n; ++l) {
     const int H = lv.H[l], W = lv.W[l];
     if (H <= 0 || W <= 0) continue;
-    const Taps t = query_taps<R>(cx0, cy0, l, H, W);
     const T* f2 = static_cast<const T*>(lv.ptr[l]) + b * ((int64_t)H * W * C) + lane * CPL;
-    for (int j = 0; j < NT; ++j) {
-      const int y = t.y + j;
-      if (y < 0 || y >= H) continue;  // uniform over the warp
-      const float gy = row_cotangent<TG, R>(gq + l * K * K, j, t.fy, inv_sqrt_c, lane);
-      const T* row = f2 + (int64_t)y * W * C;
-#pragma unroll
-      for (int i = 0; i < NT; ++i) {
-        const float d = tap_cotangent(gy, i, t.fx);
-        const int x = t.x + i;
-        if (x >= 0 && x < W) {
-          float v[CPL];
-          load_vec<CPL>(row + (int64_t)x * C, v);
-#pragma unroll
-          for (int c = 0; c < CPL; ++c) acc[c] = fmaf(d, v[c], acc[c]);
-        }
-      }
-    }
+    df1_query_level<T, TG, R, CPL>(acc, f2, H, W, C, query_taps<R>(cx0, cy0, l, H, W),
+                                   gq + l * K * K, inv_sqrt_c, lane);
   }
   float* o = df1 + bq * C + lane * CPL;
 #pragma unroll
   for (int c = 0; c < CPL; c += 4)
     *reinterpret_cast<float4*>(o + c) = make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]);
+}
+
+// ---------------------------------------------------------------------------
+// K5, bf16 fmap2: the tiled kernel, K4's tiles run backwards. A block owns
+// K4's tile of 4 grid rows x 16 queries and one 128-channel unit of df1
+// (blockIdx.y): the channels are independent, so splitting them changes no
+// sum, and at the training shape it doubles the blocks (384 for 132 SMs).
+// Warp w takes the tile's 4 x 4 patch of columns 4w..4w+3, whose windows
+// span fewer columns than a row of 16 queries (for a smooth field 14 rather
+// than 26 at level 0: one k-step of 16 pixels instead of two). Per level,
+// the block stages the fmap2 box of its windows row by row (stage_unit, as
+// K4; one row ahead, one barrier a row) and each warp, for each staged row
+// in its own rows, multiplies its queries' drows with the row's pixels on
+// the tensor cores: mma.sync m16n8k16, M = the warp's 16 queries, K = 16
+// pixels of the row (k-steps from the warp's first column), N = 8 channels
+// (16 n-tiles, 64 fp32 accumulators a lane for the whole launch). A (drows)
+// is built in registers from a per-warp table of each query's (2r+2)^2 tap
+// cotangents at this level (zero outside its window and past the box); B
+// comes from the staged row by ldmatrix.trans (pixel pitch 272 bytes: the 8
+// pixel rows of a matrix in distinct banks). drows is fp32 and its products
+// with bf16 fmap2 are exact in fp32; so drows goes in as the exact sum of
+// three bf16 pieces (hi, mid, lo: 8 + 8 + 8 significand bits), three mma
+// into one accumulator: the products stay exact and only the order of the
+// fp32 sums changes. A tile whose box does not fit (kMaxBoxW, kMaxBoxRows,
+// kMaxWarpCols) takes the per-query route at that level, as K4: the warp's
+// queries one by one on the CUDA cores (the fp32 kernel's body) into a
+// shared buffer, then added to the accumulators. Each df1 element is
+// written once, at the end.
+constexpr int kDf1Pitch = kUnitC * 2 + 16;   // bytes a staged pixel
+constexpr int kDf1StagePx = kMaxBoxW + 16;   // a warp's last k-step may read 15 past the box
+constexpr int kDf1StageBytes = kDf1StagePx * kDf1Pitch;
+constexpr int kDf1Stages = 2;
+constexpr int kDf1FbStride = kUnitC + 4;     // floats a query in the per-query route's buffer
+static_assert(kTileWarps * 16 * kDf1FbStride * 4 <= kDf1Stages * kDf1StageBytes,
+              "the per-query route's buffer lives in the stages");
+template <int R>
+constexpr size_t df1_smem() {
+  return kDf1Stages * (size_t)kDf1StageBytes + (size_t)kTileWarps * 16 * (2 * R + 2) * (2 * R + 2) * 4;
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// v as three bf16 pieces whose sum is v exactly (24 significand bits).
+__device__ __forceinline__ void split3(float v, __nv_bfloat16 (&p)[3]) {
+  p[0] = __float2bfloat16_rn(v);
+  const float r1 = v - __bfloat162float(p[0]);
+  p[1] = __float2bfloat16_rn(r1);
+  p[2] = __float2bfloat16_rn(r1 - __bfloat162float(p[1]));
+}
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  const __nv_bfloat162 v = __halves2bfloat162(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <typename TG, int R>
+__global__ void __launch_bounds__(kTileWarps * 32, 3)
+    ondemand_bwd_df1_tiled_kernel(Levels lv, const float* __restrict__ coords,
+                                  const TG* __restrict__ g, float* __restrict__ df1, int Q,
+                                  int C, int grid_w, int tiles_x, int tiles_per_b,
+                                  float inv_sqrt_c) {
+  constexpr int K = 2 * R + 1;
+  constexpr int KK = K * K;
+  constexpr int NT = 2 * R + 2;
+  constexpr int NT2 = NT * NT;
+  constexpr int NTILES = kUnitC / 8;  // n-tiles of the block's channels
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* stage = smem;
+  float* tab = reinterpret_cast<float*>(smem + kDf1Stages * kDf1StageBytes);
+  __shared__ int wrange[kTileWarps][5];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int64_t b = blockIdx.x / tiles_per_b;
+  const int tile = blockIdx.x % tiles_per_b;
+  const int ch0 = blockIdx.y * kUnitC;
+  const int row0 = (tile / tiles_x) * kTileWarps;                 // the tile's first grid row
+  const int colw = (tile % tiles_x) * kTileCols + 4 * warp;      // the warp's first column
+  tab += warp * 16 * NT2;
+  // query of the warp's mma row mr: grid row row0 + mr / 4, column colw + mr % 4
+  auto query = [&](int mr) {
+    const int col = colw + (mr & 3);
+    const int q = (row0 + (mr >> 2)) * grid_w + col;
+    return col < grid_w && q < Q ? q : -1;
+  };
+  const int64_t bq0 = (int64_t)b * Q;
+
+  // zero the stages once: a k-step past a box multiplies what lies there by 0
+  for (int i = tid; i < kDf1Stages * kDf1StageBytes / 16; i += kTileWarps * 32)
+    reinterpret_cast<uint4*>(stage)[i] = make_uint4(0, 0, 0, 0);
+
+  // coords of query lane / 2 (the box) and of the lane's mma rows g8, g8 + 8
+  const int qm = query(lane >> 1), qa = query(g8), qb = query(g8 + 8);
+  float cxm = 0.0f, cym = 0.0f, cxa = 0.0f, cya = 0.0f, cxb = 0.0f, cyb = 0.0f;
+  if (qm >= 0) { cxm = coords[2 * (bq0 + qm)]; cym = coords[2 * (bq0 + qm) + 1]; }
+  if (qa >= 0) { cxa = coords[2 * (bq0 + qa)]; cya = coords[2 * (bq0 + qa) + 1]; }
+  if (qb >= 0) { cxb = coords[2 * (bq0 + qb)]; cyb = coords[2 * (bq0 + qb) + 1]; }
+
+  float acc[NTILES][4];
+#pragma unroll
+  for (int nt = 0; nt < NTILES; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+
+  for (int l = 0; l < lv.n; ++l) {
+    const int H = lv.H[l], W = lv.W[l];
+    if (H <= 0 || W <= 0) continue;  // uniform over the block
+    const __nv_bfloat16* f2 =
+        static_cast<const __nv_bfloat16*>(lv.ptr[l]) + b * ((int64_t)H * W * C) + ch0;
+    const Taps tpm = query_taps<R>(cxm, cym, l, H, W);
+    const int xlo = max(tpm.x, 0), xhi = min(tpm.x + NT - 1, W - 1);
+    const int ylo = max(tpm.y, 0), yhi = min(tpm.y + NT - 1, H - 1);
+    const bool has = qm >= 0 && xlo <= xhi && ylo <= yhi;
+    const TileBox box = tile_box(has, xlo, xhi, ylo, yhi, wrange, warp, lane);
+    if (box.tiled) {
+      const uint32_t stage_s = smem_addr(stage);
+      // ldmatrix rows: lane gives pixel (lane & 7) + 8 (lane >> 3 & 1), channels 8 (lane >> 4) on
+      const uint32_t lm_off =
+          ((lane & 7) + ((lane >> 3) & 1) * 8) * kDf1Pitch + (lane >> 4) * 16;
+      auto issue = [&](int u) {
+        stage_unit<kDf1Pitch, kTileWarps * 32>(stage_s + (u % kDf1Stages) * kDf1StageBytes,
+                                               f2 + ((int64_t)(box.by0 + u) * W + box.bx0) * C,
+                                               box.bw, C, tid);
+      };
+      // the first rows load while the table below is built
+#pragma unroll
+      for (int u = 0; u < kDf1Stages - 1; ++u) {
+        if (u < box.bh) issue(u);
+        cp_async_commit();
+      }
+      // the warp's tap cotangents tab[mr][j][i], the fp32 kernel's arithmetic
+      // (row cotangents gy, then the tap's two columns): lane (mr, h) = (lane
+      // / 2, lane % 2) fills columns [h NT / 2, (h + 1) NT / 2) of query mr,
+      // each from two columns of gy, each column from K loads of g issued
+      // together
+      if (qm >= 0) {
+        constexpr int HALF = NT / 2;
+        const int i0 = (lane & 1) * HALF;
+        const TG* gl = g + (bq0 + qm) * (lv.n * KK) + l * KK;
+        float* tq = tab + (lane >> 1) * NT2;
+        auto gy_col = [&](int a, float (&col)[NT]) {  // gy at column a, 0 outside [0, K)
+          float gv[K];
+#pragma unroll
+          for (int c = 0; c < K; ++c)
+            gv[c] = a >= 0 && a < K ? to_f(gl[a * K + c]) * inv_sqrt_c : 0.0f;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const float g0 = j < K ? gv[j] : 0.0f;
+            const float g1 = j >= 1 ? gv[j - 1] : 0.0f;
+            col[j] = (1.0f - tpm.fy) * g0 + tpm.fy * g1;
+          }
+        };
+        float gprev[NT], gcur[NT];
+        gy_col(i0 - 1, gprev);
+#pragma unroll
+        for (int ii = 0; ii < HALF; ++ii) {
+          gy_col(i0 + ii, gcur);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            tq[j * NT + i0 + ii] = (1.0f - tpm.fx) * gcur[j] + tpm.fx * gprev[j];
+            gprev[j] = gcur[j];
+          }
+        }
+      }
+      __syncwarp();
+      const Taps ta = query_taps<R>(cxa, cya, l, H, W);
+      const Taps tb = query_taps<R>(cxb, cyb, l, H, W);
+      const float* taba = tab + g8 * NT2;
+      const float* tabb = tab + (g8 + 8) * NT2;
+      const int nks = box.warp_has ? (box.wx1 - box.wx0 + 16) / 16 : 0;  // k-steps of 16 pixels
+      const int bx_last = box.bx0 + box.bw - 1;  // past it a k-step reads stale pixels: A = 0
+      for (int u = 0; u < box.bh; ++u) {
+        cp_async_wait<kDf1Stages - 2>();  // row u has landed
+        __syncthreads();                  // ... for every thread; row u - 1 is done
+        if (u + kDf1Stages - 1 < box.bh) issue(u + kDf1Stages - 1);  // into row u - 1's stage
+        cp_async_commit();
+        const int y = box.by0 + u;
+        if (box.warp_has && y >= box.wy0 && y <= box.wy1) {  // uniform over the warp
+          const int ja = y - ta.y, jb = y - tb.y;
+          const bool ra = qa >= 0 && ja >= 0 && ja < NT, rb = qb >= 0 && jb >= 0 && jb < NT;
+          const uint32_t st = stage_s + (u % kDf1Stages) * kDf1StageBytes + lm_off;
+          for (int ks = 0; ks < nks; ++ks) {
+            const int xs = box.wx0 + 16 * ks;
+            // A: rows g8 (query qa) and g8 + 8 (qb), pixels xs + 2 t4 + {0, 1, 8, 9}
+            uint32_t A[3][4];
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              __nv_bfloat16 pa[2][3], pb[2][3];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int x = xs + 2 * t4 + 8 * hh + e;
+                const int ia = x - ta.x, ib = x - tb.x;
+                const bool in = x <= bx_last;
+                split3(in && ra && ia >= 0 && ia < NT ? taba[ja * NT + ia] : 0.0f, pa[e]);
+                split3(in && rb && ib >= 0 && ib < NT ? tabb[jb * NT + ib] : 0.0f, pb[e]);
+              }
+#pragma unroll
+              for (int p = 0; p < 3; ++p) {
+                A[p][2 * hh] = pack2(pa[0][p], pa[1][p]);
+                A[p][2 * hh + 1] = pack2(pb[0][p], pb[1][p]);
+              }
+            }
+            // B: the k-step's 16 pixels x 128 channels, then the pieces' products
+            // (each piece's 16 independent mma before the next piece's)
+            const uint32_t bk = st + (uint32_t)((xs - box.bx0) * kDf1Pitch);
+            uint32_t bf[NTILES / 2][4];
+#pragma unroll
+            for (int np = 0; np < NTILES / 2; ++np) ldsm_x4_trans(bf[np], bk + np * 32);
+#pragma unroll
+            for (int p = 0; p < 3; ++p)
+#pragma unroll
+              for (int np = 0; np < NTILES / 2; ++np) {
+                mma_bf16(acc[2 * np], A[p][0], A[p][1], A[p][2], A[p][3], bf[np][0], bf[np][1]);
+                mma_bf16(acc[2 * np + 1], A[p][0], A[p][1], A[p][2], A[p][3], bf[np][2],
+                         bf[np][3]);
+              }
+          }
+        }
+      }
+    } else {
+      // per-query route: the warp's queries one by one, lane channels 4 lane..
+      // of the block's unit, into a buffer in the stages, then into the
+      // accumulators
+      float* fb = reinterpret_cast<float*>(stage) + warp * 16 * kDf1FbStride;
+      for (int mr = 0; mr < 16; ++mr) {
+        const float cx = __shfl_sync(kFull, cxm, 2 * mr);
+        const float cy = __shfl_sync(kFull, cym, 2 * mr);
+        const int q = query(mr);
+        if (q < 0) continue;  // uniform over the warp
+        float a4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        df1_query_level<__nv_bfloat16, TG, R, 4>(
+            a4, f2 + lane * 4, H, W, C, query_taps<R>(cx, cy, l, H, W),
+            g + (bq0 + q) * (lv.n * KK) + l * KK, inv_sqrt_c, lane);
+        store_vec<4>(fb + mr * kDf1FbStride + lane * 4, a4);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int nt = 0; nt < NTILES; ++nt) {
+        const int n = nt * 8 + 2 * t4;
+        if (qa >= 0) {
+          acc[nt][0] += fb[g8 * kDf1FbStride + n];
+          acc[nt][1] += fb[g8 * kDf1FbStride + n + 1];
+        }
+        if (qb >= 0) {
+          acc[nt][2] += fb[(g8 + 8) * kDf1FbStride + n];
+          acc[nt][3] += fb[(g8 + 8) * kDf1FbStride + n + 1];
+        }
+      }
+      __syncthreads();
+      // zero the stages again: the buffer's floats, read as bf16, need not be
+      // finite, and a k-step may read past a box into them
+      for (int i = tid; i < kDf1Stages * kDf1StageBytes / 16; i += kTileWarps * 32)
+        reinterpret_cast<uint4*>(stage)[i] = make_uint4(0, 0, 0, 0);
+    }
+    __syncthreads();  // wrange and the stages are rewritten for the next level
+  }
+  float* oa = df1 + (bq0 + qa) * C + ch0 + 2 * t4;
+  float* ob = df1 + (bq0 + qb) * C + ch0 + 2 * t4;
+#pragma unroll
+  for (int nt = 0; nt < NTILES; ++nt) {
+    if (qa >= 0) *reinterpret_cast<float2*>(oa + nt * 8) = make_float2(acc[nt][0], acc[nt][1]);
+    if (qb >= 0) *reinterpret_cast<float2*>(ob + nt * 8) = make_float2(acc[nt][2], acc[nt][3]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -993,17 +1323,13 @@ cudaError_t launch_fwd_tiled(const void* f1, const Levels& lv, const void* coord
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  // the query grid: level 0's when the queries are its pixels, else rows of 16
-  const int grid_w = (lv.W[0] > 0 && (int64_t)lv.H[0] * lv.W[0] == Q) ? lv.W[0] : kTileCols;
-  const int tiles_x = (grid_w + kTileCols - 1) / kTileCols;
-  const int64_t grid_h = ((int64_t)Q + grid_w - 1) / grid_w;
-  const int64_t tiles = B * (int64_t)tiles_x * ((grid_h + kTileWarps - 1) / kTileWarps);
-  if (tiles > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  g_last_tiles = (int)tiles;
+  const TileGrid tg = tile_grid(lv, B, Q);
+  if (tg.tiles > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  g_last_tiles = (int)tg.tiles;
   g_last_levels = lv.n;
-  kernel<<<(unsigned)tiles, kTileWarps * 32, smem, s>>>(
+  kernel<<<(unsigned)tg.tiles, kTileWarps * 32, smem, s>>>(
       static_cast<const __nv_bfloat16*>(f1), lv, static_cast<const float*>(coords),
-      static_cast<TO*>(out), Q, grid_w, tiles_x, (int)(tiles / B), inv_sqrt(C));
+      static_cast<TO*>(out), Q, tg.grid_w, tg.tiles_x, tg.tiles_per_b, inv_sqrt(C));
   return cudaSuccess;
 }
 
@@ -1040,15 +1366,40 @@ void launch_df1(const Levels& lv, const void* coords, const void* g, void* df1,
       static_cast<float*>(df1), bq, Q, inv_sqrt(C));
 }
 
+template <typename TG, int R>
+cudaError_t launch_df1_tiled(const Levels& lv, const void* coords, const void* g, void* df1,
+                             int B, int Q, int C, cudaStream_t s) {
+  auto kernel = ondemand_bwd_df1_tiled_kernel<TG, R>;
+  const size_t smem = df1_smem<R>();
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const TileGrid tg = tile_grid(lv, B, Q);
+  if (tg.tiles > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)tg.tiles, (unsigned)(C / kUnitC));
+  kernel<<<grid, kTileWarps * 32, smem, s>>>(lv, static_cast<const float*>(coords),
+                                             static_cast<const TG*>(g), static_cast<float*>(df1),
+                                             Q, C, tg.grid_w, tg.tiles_x, tg.tiles_per_b,
+                                             inv_sqrt(C));
+  return cudaSuccess;
+}
+
 template <typename T, typename TG>
-void df1_by_shape(const Levels& lv, const void* coords, const void* g, void* df1,
-                  int64_t bq, int Q, int C, int radius, cudaStream_t s) {
-  if (radius == 4) {
-    if (C == 256) launch_df1<T, TG, 4, 8>(lv, coords, g, df1, bq, Q, C, s);
-    else launch_df1<T, TG, 4, 4>(lv, coords, g, df1, bq, Q, C, s);
+cudaError_t df1_by_shape(const Levels& lv, const void* coords, const void* g, void* df1, int B,
+                         int Q, int C, int radius, cudaStream_t s) {
+  const int64_t bq = (int64_t)B * Q;
+  if constexpr (sizeof(T) == 2) {
+    return radius == 4 ? launch_df1_tiled<TG, 4>(lv, coords, g, df1, B, Q, C, s)
+                       : launch_df1_tiled<TG, 3>(lv, coords, g, df1, B, Q, C, s);
   } else {
-    if (C == 256) launch_df1<T, TG, 3, 8>(lv, coords, g, df1, bq, Q, C, s);
-    else launch_df1<T, TG, 3, 4>(lv, coords, g, df1, bq, Q, C, s);
+    if (radius == 4) {
+      if (C == 256) launch_df1<T, TG, 4, 8>(lv, coords, g, df1, bq, Q, C, s);
+      else launch_df1<T, TG, 4, 4>(lv, coords, g, df1, bq, Q, C, s);
+    } else {
+      if (C == 256) launch_df1<T, TG, 3, 8>(lv, coords, g, df1, bq, Q, C, s);
+      else launch_df1<T, TG, 3, 4>(lv, coords, g, df1, bq, Q, C, s);
+    }
+    return cudaSuccess;
   }
 }
 
@@ -1150,12 +1501,14 @@ extern "C" int raft_corr_ondemand_bwd_df1(const void* const* level_ptrs, const i
   if (bq == 0) return (int)cudaSuccess;
   if ((bq + kWarps - 1) / kWarps > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   switch (f2_dtype * 2 + g_dtype) {
-    case 0: df1_by_shape<float, float>(lv, coords, g, df1, bq, Q, C, radius, s); break;
-    case 1: df1_by_shape<float, __nv_bfloat16>(lv, coords, g, df1, bq, Q, C, radius, s); break;
-    case 2: df1_by_shape<__nv_bfloat16, float>(lv, coords, g, df1, bq, Q, C, radius, s); break;
-    default: df1_by_shape<__nv_bfloat16, __nv_bfloat16>(lv, coords, g, df1, bq, Q, C, radius, s); break;
+    case 0: err = df1_by_shape<float, float>(lv, coords, g, df1, B, Q, C, radius, s); break;
+    case 1: err = df1_by_shape<float, __nv_bfloat16>(lv, coords, g, df1, B, Q, C, radius, s); break;
+    case 2: err = df1_by_shape<__nv_bfloat16, float>(lv, coords, g, df1, B, Q, C, radius, s); break;
+    default: err = df1_by_shape<__nv_bfloat16, __nv_bfloat16>(lv, coords, g, df1, B, Q, C, radius, s); break;
   }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -57,11 +57,32 @@
 //     side of each line) is staged once in shared memory; rh overwrites the
 //     staged h; z stays in the accumulators through the q product, and h' is
 //     computed in registers (h re-read from L2).
-// fp32 design (gru_pass_fp32_kernel): a block owns a strip of 44 positions of
-// one line plus a 4-position halo, and runs full-precision FMAs on the CUDA
-// cores (no TF32: the fp32 policy is exact fp32), each thread a 6 x 8 (z, r)
-// or 6 x 4 (q) register tile, A broadcast from shared memory and the weights
-// as float4 rows from L2.
+// fp32 design (gru_pass_fp32_gemm_kernel): full-precision FMAs on the CUDA cores
+// (no TF32: the fp32 policy is exact fp32), two launches a pass. The first
+// is the z|r GEMM over every position ([P x 5(D+X)] x [5(D+X) x 2D]): z goes
+// to the output buffer, r * h to a scratch buffer. The second is the q GEMM
+// over cat(r * h, x) and the update, in place over z. Splitting the pass
+// there removes the halo that one kernel must recompute (r at 2 positions
+// beyond each side of its strip) and lets each GEMM's rows run over the
+// positions of all lines, line after line, so that short lines (46 and 62 at
+// the training shape) fill blocks whole.
+//   - Bound: operations. Batch 2, 46x62 (5,704 positions), D = 128, X = 256:
+//     8.41 GFLOP a pass, 0.1255 ms at the card's 67 TFLOP/s of fp32 FMA.
+//   - Weights. A block owns 8 TM positions (TM rows per thread, 4..8, chosen
+//     per launch so that the blocks, one an SM, end soonest: TM = 6 at the
+//     training shape, 119 blocks) and streams the GEMM's weights once through
+//     a ring of 32-channel chunks (16 where C is no multiple of 32) in shared
+//     memory, three in flight (cp.async), read by all 8 warps: 119 x 2.95 MB
+//     = 0.35 GB of L2 reads a pass, against 0.54 GB (1x5) and 0.73 GB (5x1)
+//     for the kernel this replaces (a block per 44-position strip of one
+//     line, each thread reading its weights from L2).
+//   - Products. Thread tiles of TM x 8 (z|r) or TM x 4 (q) fp32 accumulators,
+//     both operands read from shared memory as float4: per 4 channels, TM
+//     loads of A (each row a broadcast to 8 lanes) and 8 (or 4) weight loads
+//     for 32 TM (16 TM) FMAs.
+//   - Sum order. Each output is one fmaf chain over taps ascending, then
+//     channels ascending, starting from 0, and the gate arithmetic is the
+//     strip kernel's, so the outputs are that kernel's bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,183 +109,285 @@ __device__ __forceinline__ __nv_bfloat16 gate_product(float r, __nv_bfloat16 h) 
 
 __host__ __device__ inline size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
 
+// pixel index of position p of line `line`: axis 2 (1x5 pass) lines are rows,
+// axis 1 (5x1 pass) lines are columns
+__device__ __forceinline__ int64_t line_pixel(int64_t line, int p, int H, int W, bool horizontal) {
+  if (horizontal) return line * W + p;
+  const int64_t b = line / W;
+  return (b * H + p) * W + (line - b * W);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {  // all but the newest N groups landed
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------------------
-// fp32: CUDA-core FMAs over strips of 44 positions.
+// fp32: two CUDA-core GEMMs a pass, over runs of positions.
 
-constexpr int kT = 44;        // output positions per block
-constexpr int kM = 48;        // GEMM rows: z and r over [t0 - 2, t0 + 46)
-constexpr int kRows = 56;     // staged rows: [t0 - 4, t0 + 48) and 4 zero rows
-constexpr int kLive = kT + 8; // staged rows that can hold image data
-constexpr int kThreads = 256; // 8 warps
-constexpr int kLdg = 2 * kD + 4;  // row stride of the fp32 gate buffer
-constexpr int kPad = 4;       // staged row padding, in elements
+constexpr int kF32Threads = 256;  // 8 warps: 2 along the rows, 4 along the columns
+constexpr int kF32Stages = 4;     // weight chunks in flight and in use
+constexpr int kF32Pad = 4;        // staged row pad: rows r..r+3 fall in distinct banks
+constexpr int kF32MinTm = 4;      // rows per thread: a block owns 8 TM positions
+constexpr int kF32MaxTm = 8;
 
-size_t fp32_smem_bytes(int C) {
-  return align128((size_t)kRows * (C + kPad) * sizeof(float)) + (size_t)kM * kLdg * sizeof(float);
+// Shared memory of a block: BM + 4 staged rows and one zero row, then the
+// weight ring of chunks of kc channels.
+__host__ __device__ constexpr int f32_block_rows(int tm) { return 8 * tm; }
+
+size_t f32_smem_bytes(int C, int tm, int ncol, int kc) {
+  return (size_t)(f32_block_rows(tm) + 5) * (C + kF32Pad) * 4 +
+         (size_t)kF32Stages * kc * ncol * 4;
 }
 
-// Thread (tr, tc) = (warp, lane) owns rows tr + 8i (i < 6) and 4 columns per
-// 128-column group; a warp's A reads are one broadcast address, its weight
-// reads one 512-byte row segment.
-// z and r: G[m][0, 2D) = sum_t,c hx[m + t][c] * w[t][c][0, 2D).
-__device__ void gemm_zr_fp32(const float* hx, int lda, const float* __restrict__ w,
-                             int C, float* G) {
-  const int tc = threadIdx.x & 31, tr = threadIdx.x >> 5;
-  float acc[6][8];
-#pragma unroll
-  for (int i = 0; i < 6; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  for (int t = 0; t < kTaps; ++t) {
-    const float* a0 = hx + (tr + t) * lda;
-    const float* wt = w + (size_t)t * C * kN3 + 4 * tc;
-#pragma unroll 2
-    for (int c = 0; c < C; ++c) {
-      const float4 wz = __ldg(reinterpret_cast<const float4*>(wt + (size_t)c * kN3));
-      const float4 wr = __ldg(reinterpret_cast<const float4*>(wt + (size_t)c * kN3 + kD));
-#pragma unroll
-      for (int i = 0; i < 6; ++i) {
-        const float a = a0[8 * i * lda + c];
-        acc[i][0] += a * wz.x; acc[i][1] += a * wz.y;
-        acc[i][2] += a * wz.z; acc[i][3] += a * wz.w;
-        acc[i][4] += a * wr.x; acc[i][5] += a * wr.y;
-        acc[i][6] += a * wr.z; acc[i][7] += a * wr.w;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    float* g = G + (tr + 8 * i) * kLdg + 4 * tc;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      g[j] = acc[i][j];
-      g[kD + j] = acc[i][4 + j];
-    }
-  }
-}
-
-// q: G[m][D, 2D) = sum_t,c hx[m + t + 2][c] * w[t][c][2D, 3D).
-__device__ void gemm_q_fp32(const float* hx, int lda, const float* __restrict__ w,
-                            int C, float* G) {
-  const int tc = threadIdx.x & 31, tr = threadIdx.x >> 5;
-  float acc[6][4];
-#pragma unroll
-  for (int i = 0; i < 6; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  for (int t = 0; t < kTaps; ++t) {
-    const float* a0 = hx + (tr + t + 2) * lda;
-    const float* wt = w + (size_t)t * C * kN3 + 2 * kD + 4 * tc;
-#pragma unroll 4
-    for (int c = 0; c < C; ++c) {
-      const float4 wq = __ldg(reinterpret_cast<const float4*>(wt + (size_t)c * kN3));
-#pragma unroll
-      for (int i = 0; i < 6; ++i) {
-        const float a = a0[8 * i * lda + c];
-        acc[i][0] += a * wq.x; acc[i][1] += a * wq.y;
-        acc[i][2] += a * wq.z; acc[i][3] += a * wq.w;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    float* g = G + (tr + 8 * i) * kLdg + kD + 4 * tc;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) g[j] = acc[i][j];
-  }
-}
-
-// Grid: x = line (b and the index across the pass axis), y = strip along it.
-// axis 2: the 1x5 pass, lines are rows; axis 1: the 5x1 pass, lines are
-// columns. A block stages h | x of positions [t0 - 4, t0 + 48), computes z
-// and r over the strip plus a 2-position halo (48 rows), overwrites the
-// staged h with rh there, computes q over the strip, and writes h'.
-__global__ void __launch_bounds__(kThreads)
-    gru_pass_fp32_kernel(const float* __restrict__ h, const float* __restrict__ x,
+// One of the pass's two GEMMs over the positions of all lines, line after
+// line (f = line * L + p); block b owns rows f in [BM b, BM (b + 1)), BM = 8 TM.
+// ZR: G = cat(h, x) taps x w[:, :, 0:2D]; z goes to out, r * h to rh.
+// Q: G = cat(rh, x) taps x w[:, :, 2D:3D]; h' = (1 - z) h + z q over the z in out.
+// The block stages the rows f0 - 2 .. f0 + BM + 1 whole (C channels) once;
+// the A operand of row m at tap t is staged row m + t when position p + t - 2
+// lies on the line, else a zero row. The weights come through a ring of
+// KC-channel chunks (cp.async, three ahead), read by every warp. Thread
+// (warp, lane) owns rows row0 + 4i (i < TM) and columns colw + 32j + e
+// (e < 4): per 4 channels it loads TM float4 of A (each a 4-row broadcast,
+// no bank conflicts with lda = C + 4) and TN float4 of weights (each 128
+// contiguous bytes), for 4 * TM * TN FMAs. Each output is one fmaf chain
+// over taps ascending, then channels ascending, from 0: the strip kernel's
+// order, so the same bits.
+template <int TM, int KC, bool ZR>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    gru_pass_fp32_gemm_kernel(const float* __restrict__ hin, const float* __restrict__ x,
                          const float* __restrict__ w, const float* __restrict__ bias,
-                         float* __restrict__ out, int H, int W, int X, int axis) {
-  extern __shared__ __align__(128) unsigned char smem[];
+                         const float* __restrict__ h, float* __restrict__ out,
+                         float* __restrict__ rh, int H, int W, int X, int axis,
+                         int64_t total) {
+  constexpr int BM = f32_block_rows(TM);
+  constexpr int NCOL = ZR ? 2 * kD : kD;
+  constexpr int TN = NCOL / 32;
+  extern __shared__ __align__(16) float f32s[];
   const int C = kD + X;
-  const int lda = C + kPad;
-  float* hx = reinterpret_cast<float*>(smem);
-  float* G = reinterpret_cast<float*>(smem + align128((size_t)kRows * lda * sizeof(float)));
-
+  const int lda = C + kF32Pad;
+  float* A = f32s;                      // [BM + 5][lda], row BM + 4 all zero
+  float* ring = f32s + (BM + 5) * lda;  // [kF32Stages][KC][NCOL]
+  const int tid = threadIdx.x;
   const bool horizontal = axis == 2;
-  const int len = horizontal ? W : H;
-  const int across = horizontal ? H : W;
-  const int b = blockIdx.x / across;
-  const int o = blockIdx.x - b * across;
-  const int t0 = blockIdx.y * kT;
-  // pixel index of position p on this line
-  const int64_t line0 = horizontal ? ((int64_t)b * H + o) * W : (int64_t)b * H * W + o;
-  const int64_t step = horizontal ? 1 : W;
+  const int L = horizontal ? W : H;
+  const int64_t f0 = (int64_t)blockIdx.x * BM;
+  const int cpt = C / KC;  // chunks per tap
+  const int nk = kTaps * cpt;
 
-  // 1. stage h | x of positions [t0 - 4, t0 + 48), zero outside the image,
-  //    16-byte vectors (the wrapper checks the alignment)
-  const int hv = kD / 4, rowv = C / 4;
-  for (int i = threadIdx.x; i < kRows * rowv; i += kThreads) {
-    const int row = i / rowv;
-    const int v = i - row * rowv;
-    const int p = t0 - 4 + row;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row < kLive && p >= 0 && p < len) {
-      const int64_t pix = line0 + p * step;
-      val = v < hv ? __ldg(reinterpret_cast<const uint4*>(h + pix * kD) + v)
-                   : __ldg(reinterpret_cast<const uint4*>(x + pix * X) + (v - hv));
+  // chunk k: tap k / cpt, channels KC (k % cpt) .., this GEMM's columns
+  auto issue = [&](int k) {
+    const int t = k / cpt;
+    const int c0 = (k - t * cpt) * KC;
+    const float* src = w + ((size_t)t * C + c0) * kN3 + (ZR ? 0 : 2 * kD);
+    const uint32_t dst = smem_u32(ring + (k % kF32Stages) * (KC * NCOL));
+    for (int e = tid; e < KC * NCOL / 4; e += kF32Threads) {
+      const int r = e / (NCOL / 4);
+      const int v = e - r * (NCOL / 4);
+      cp_async16(dst + (r * NCOL + 4 * v) * 4, src + (size_t)r * kN3 + 4 * v);
     }
-    *(reinterpret_cast<uint4*>(hx + row * lda) + v) = val;
+  };
+
+  // stage rows f0 - 2 + s (h | x, or rh | x), zero outside [0, total), and
+  // the zero row
+  {
+    const int hv = kD / 4, rowv = C / 4;
+    for (int i = tid; i < (BM + 5) * rowv; i += kF32Threads) {
+      const int s = i / rowv;
+      const int v = i - s * rowv;
+      const int64_t f = f0 - 2 + s;
+      float* dst = A + s * lda + 4 * v;
+      if (s < BM + 4 && f >= 0 && f < total) {
+        const int64_t line = f / L;
+        const int64_t pix = line_pixel(line, (int)(f - line * L), H, W, horizontal);
+        cp_async16(smem_u32(dst), v < hv ? (const void*)(hin + pix * kD + 4 * v)
+                                         : (const void*)(x + pix * X + 4 * (v - hv)));
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    }
+    cp_async_commit();
   }
-  __syncthreads();
-
-  // 2. z and r over GEMM rows m = 0..47 (positions t0 - 2 + m)
-  gemm_zr_fp32(hx, lda, w, C, G);
-  __syncthreads();
-
-  // 3. z kept in place; the staged h of row m + 2 becomes rh (h is 0 outside
-  //    the image, so rh is too)
-  for (int i = threadIdx.x; i < kM * kD; i += kThreads) {
-    const int m = i / kD;
-    const int n = i - m * kD;
-    float* g = G + m * kLdg;
-    g[n] = sigmoid(g[n] + bias[n]);
-    const float r = sigmoid(g[kD + n] + bias[kD + n]);
-    float* hp = hx + (m + 2) * lda + n;
-    *hp = gate_product(r, *hp);
+#pragma unroll
+  for (int k = 0; k < kF32Stages - 1; ++k) {
+    if (k < nk) issue(k);
+    cp_async_commit();
   }
-  __syncthreads();
 
-  // 4. q over GEMM rows m = 0..47 (positions t0 + m; rows past kT are dropped)
-  gemm_q_fp32(hx, lda, w, C, G);
-  __syncthreads();
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row0 = (warp >> 2) * (BM / 2) + (lane >> 3);
+  const int colw = (warp & 3) * (NCOL / 4) + 4 * (lane & 7);
+  int pos[TM];  // position on its line of each row; far negative past the end
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int64_t f = f0 + row0 + 4 * i;
+    pos[i] = f < total ? (int)(f % L) : -8;
+  }
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 
-  // 5. h' = (1 - z) h + z q, h re-read from global memory (L2)
-  for (int i = threadIdx.x; i < kT * kD; i += kThreads) {
-    const int j = i / kD;
-    const int n = i - j * kD;
-    const int p = t0 + j;
-    if (p >= len) break;  // rows are in order: the rest of the strip is past the end
-    const int64_t off = (line0 + p * step) * kD + n;
-    const float z = G[(j + 2) * kLdg + n];
-    const float q = tanhf(G[j * kLdg + kD + n] + bias[2 * kD + n]);
-    out[off] = (1.0f - z) * h[off] + z * q;
+  for (int k = 0; k < nk; ++k) {
+    cp_async_wait<kF32Stages - 2>();  // the rows and chunk k have landed
+    __syncthreads();                  // ... for every thread; chunk k - 1 is done
+    if (k + kF32Stages - 1 < nk) issue(k + kF32Stages - 1);  // into chunk k - 1's slot
+    cp_async_commit();
+    const int t = k / cpt;
+    const int c0 = (k - t * cpt) * KC;
+    const float* arow[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int p = pos[i] + t - 2;
+      arow[i] = A + ((p >= 0 && p < L) ? row0 + 4 * i + t : BM + 4) * lda + c0;
+    }
+    const float* wk = ring + (k % kF32Stages) * (KC * NCOL) + colw;
+#pragma unroll
+    for (int cc = 0; cc < KC; cc += 4) {
+      float4 a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = *reinterpret_cast<const float4*>(arow[i] + cc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float4 b[TN / 4];
+#pragma unroll
+        for (int j = 0; j < TN / 4; ++j)
+          b[j] = *reinterpret_cast<const float4*>(wk + (cc + kk) * NCOL + 32 * j);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
+#pragma unroll
+          for (int j = 0; j < TN / 4; ++j) {
+            acc[i][4 * j] = fmaf(av, b[j].x, acc[i][4 * j]);
+            acc[i][4 * j + 1] = fmaf(av, b[j].y, acc[i][4 * j + 1]);
+            acc[i][4 * j + 2] = fmaf(av, b[j].z, acc[i][4 * j + 2]);
+            acc[i][4 * j + 3] = fmaf(av, b[j].w, acc[i][4 * j + 3]);
+          }
+        }
+      }
+    }
+  }
+
+  // the strip kernel's gate arithmetic, element by element
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int64_t f = f0 + row0 + 4 * i;
+    if (f >= total) continue;
+    const int64_t line = f / L;
+    const int64_t pix = line_pixel(line, (int)(f - line * L), H, W, horizontal);
+#pragma unroll
+    for (int j = 0; j < TN / 4; ++j) {
+      const int n0 = colw + 32 * j;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = n0 + e;
+        if (ZR) {
+          if (n < kD) {  // z (uniform over the warp)
+            out[pix * kD + n] = sigmoid(acc[i][4 * j + e] + bias[n]);
+          } else {
+            const float r = sigmoid(acc[i][4 * j + e] + bias[n]);
+            rh[pix * kD + n - kD] = gate_product(r, h[pix * kD + n - kD]);
+          }
+        } else {
+          const int64_t off = pix * kD + n;
+          const float z = out[off];
+          const float q = tanhf(acc[i][4 * j + e] + bias[2 * kD + n]);
+          out[off] = (1.0f - z) * h[off] + z * q;
+        }
+      }
+    }
   }
 }
 
-int launch_fp32(const void* h, const void* x, const void* w, const void* bias, void* out,
-                int B, int H, int W, int X, int axis, cudaStream_t s) {
-  const size_t smem = fp32_smem_bytes(kD + X);
-  if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(gru_pass_fp32_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+// The rows per thread of one launch: of the TMs whose block fits in shared
+// memory, the one whose blocks, one an SM, end soonest (waves x rows a
+// block); ties to the larger block (fewer weight reads).
+int f32_rows_per_thread(int64_t total, int nsm, int C, int kc) {
+  int best = kF32MinTm;
+  int64_t best_cost = INT64_MAX;
+  for (int tm = kF32MaxTm; tm >= kF32MinTm; --tm) {
+    if (f32_smem_bytes(C, tm, 2 * kD, kc) > (size_t)kSmemLimit) continue;
+    const int64_t blocks = (total + f32_block_rows(tm) - 1) / f32_block_rows(tm);
+    const int64_t cost = (blocks + nsm - 1) / nsm * f32_block_rows(tm);
+    if (cost < best_cost) {
+      best_cost = cost;
+      best = tm;
+    }
+  }
+  return best;
+}
+
+template <int TM, int KC, bool ZR>
+cudaError_t launch_fp32_gemm(const float* hin, const float* x, const float* w,
+                             const float* bias, const float* h, float* out, float* rh,
+                             int H, int W, int X, int axis, int64_t total, cudaStream_t s) {
+  auto kernel = gru_pass_fp32_gemm_kernel<TM, KC, ZR>;
+  const size_t smem = f32_smem_bytes(kD + X, TM, ZR ? 2 * kD : kD, KC);
+  if (smem > (size_t)kSmemLimit) return cudaErrorInvalidConfiguration;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = (total + f32_block_rows(TM) - 1) / f32_block_rows(TM);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)blocks, kF32Threads, smem, s>>>(hin, x, w, bias, h, out, rh, H, W, X, axis,
+                                                     total);
+  return cudaGetLastError();
+}
+
+template <int TM, int KC>
+cudaError_t launch_fp32_tm(const float* h, const float* x, const float* w, const float* bias,
+                           float* rh, float* out, int H, int W, int X, int axis, int64_t total,
+                           cudaStream_t s) {
+  cudaError_t err =
+      launch_fp32_gemm<TM, KC, true>(h, x, w, bias, h, out, rh, H, W, X, axis, total, s);
+  if (err != cudaSuccess) return err;
+  return launch_fp32_gemm<TM, KC, false>(rh, x, w, bias, h, out, nullptr, H, W, X, axis, total,
+                                         s);
+}
+
+template <int KC>
+cudaError_t launch_fp32_kc(const float* h, const float* x, const float* w, const float* bias,
+                           float* rh, float* out, int H, int W, int X, int axis, int64_t total,
+                           int nsm, cudaStream_t s) {
+  switch (f32_rows_per_thread(total, nsm, kD + X, KC)) {
+    case 4: return launch_fp32_tm<4, KC>(h, x, w, bias, rh, out, H, W, X, axis, total, s);
+    case 5: return launch_fp32_tm<5, KC>(h, x, w, bias, rh, out, H, W, X, axis, total, s);
+    case 6: return launch_fp32_tm<6, KC>(h, x, w, bias, rh, out, H, W, X, axis, total, s);
+    case 7: return launch_fp32_tm<7, KC>(h, x, w, bias, rh, out, H, W, X, axis, total, s);
+    default: return launch_fp32_tm<8, KC>(h, x, w, bias, rh, out, H, W, X, axis, total, s);
+  }
+}
+
+// fp32 pass: the z|r GEMM (z into out, r * h into the scratch rh), then the
+// q GEMM and the update, in place over out. Weight chunks of 32 channels
+// where C allows (half the barriers of 16), else 16.
+int launch_fp32(const void* h, const void* x, const void* w, const void* bias, void* scratch,
+                void* out, int B, int H, int W, int X, int axis, cudaStream_t s) {
+  int dev = 0, nsm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const int len = axis == 2 ? W : H;
-  const int across = axis == 2 ? H : W;
-  const dim3 grid((unsigned)((int64_t)B * across), (unsigned)((len + kT - 1) / kT));
-  gru_pass_fp32_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(h), static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(out), H, W, X, axis);
-  return (int)cudaGetLastError();
+  const int64_t total = (int64_t)B * H * W;
+  const auto* hf = static_cast<const float*>(h);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* wf = static_cast<const float*>(w);
+  const auto* bf = static_cast<const float*>(bias);
+  auto* rh = static_cast<float*>(scratch);
+  auto* of = static_cast<float*>(out);
+  if ((kD + X) % 32 == 0)
+    return (int)launch_fp32_kc<32>(hf, xf, wf, bf, rh, of, H, W, X, axis, total, nsm, s);
+  return (int)launch_fp32_kc<16>(hf, xf, wf, bf, rh, of, H, W, X, axis, total, nsm, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -290,9 +413,6 @@ size_t tc_fixed_bytes(int C) {
   return 1024 + (size_t)kStagedMax * (2 * C + 16) + kTcRows * 16 + 2 * kMaxSlots * 8;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
 }
@@ -319,9 +439,6 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(dst), "l"(src) : "memory");
 }
 __device__ __forceinline__ void ldsm_x4(uint32_t (&a)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -436,13 +553,6 @@ struct TcPlan {
   int per_wg;   // lines per warpgroup when packed (0: a block per line segment)
   int nseg;     // segments per line when not packed
 };
-
-// pixel index of position p of line `line`
-__device__ __forceinline__ int64_t line_pixel(int64_t line, int p, int H, int W, bool horizontal) {
-  if (horizontal) return line * W + p;
-  const int64_t b = line / W;
-  return (b * H + p) * W + (line - b * W);
-}
 
 // One consumer warpgroup's share of one weight chunk: wait for its slot,
 // load A for the chunk's (at most two) k-steps, issue the products, and
@@ -724,16 +834,19 @@ int launch_bf16(const void* h, const void* x, const void* w, const void* bias, v
 }  // namespace
 
 // Bytes of the scratch buffer raft_sepconv_gru_pass takes for the given
-// widths and dtype (0 for float32, which reads w as it is).
-extern "C" int64_t raft_sepconv_gru_scratch_bytes(int D, int X, int dtype) {
-  if (D != kD || X <= 0 || X % 16 != 0 || dtype != 1) return 0;
-  return (int64_t)image_elems(kD + X) * 2;
+// shape and dtype (0 for shapes it refuses).
+extern "C" int64_t raft_sepconv_gru_scratch_bytes(int B, int H, int W, int D, int X, int dtype) {
+  if (B <= 0 || H <= 0 || W <= 0 || D != kD || X <= 0 || X % 16 != 0) return 0;
+  if (dtype == 0) return (int64_t)B * H * W * kD * 4;  // r * h of every position
+  if (dtype == 1) return (int64_t)image_elems(kD + X) * 2;
+  return 0;
 }
 
 // h [B, H, W, D], x [B, H, W, X], out [B, H, W, D]: contiguous NHWC, 16-byte
 // aligned, out not overlapping h or x; w [5, D + X, 3D] contiguous in the
 // dtype of h; bias [3D] fp32; scratch: raft_sepconv_gru_scratch_bytes bytes,
-// 16-byte aligned (bf16: the weight image, rewritten by every call). D must be
+// 16-byte aligned, rewritten by every call (fp32: r * h; bf16: the weight
+// image). D must be
 // 128 and X a positive multiple of 16. axis: 2 = the 1x5 pass (along W), 1 =
 // the 5x1 pass (along H). dtype: 0 = float32, 1 = bfloat16. Returns a
 // cudaError_t as int.
@@ -745,8 +858,8 @@ extern "C" int raft_sepconv_gru_pass(const void* h, const void* x, const void* w
     return (int)cudaErrorInvalidValue;
   if ((int64_t)B * (axis == 2 ? H : W) > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fp32(h, x, w, bias, out, B, H, W, X, axis, s);
   if (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch_fp32(h, x, w, bias, scratch, out, B, H, W, X, axis, s);
   return launch_bf16(h, x, w, bias, scratch, out, B, H, W, X, axis, s);
 }

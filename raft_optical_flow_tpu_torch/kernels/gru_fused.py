@@ -8,7 +8,8 @@ Counterpart of `raft_optical_flow_tpu/kernels/gru_fused.py`. One CUDA kernel
     for the vertical 5x1 pass. In bf16 it runs on the tensor cores (`wgmma`,
     the weights streamed through shared memory), after a small kernel that
     lays the pass's weights out as the tiles they read; in fp32 on the CUDA
-    cores.
+    cores, as two GEMM kernels (z|r, then q and the update) with r * h
+    between them in a scratch buffer.
 
 Parameters are the port's modules' own: `params` maps `convz1`, `convr1`,
 `convq1` (1x5) and `convz2`, `convr2`, `convq2` (5x1) to (weight [D, D+X, kh,
@@ -69,7 +70,7 @@ def _kernels() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.raft_sepconv_gru_pass.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, P]
         lib.raft_sepconv_gru_pass.restype = I
-        lib.raft_sepconv_gru_scratch_bytes.argtypes = [I, I, I]
+        lib.raft_sepconv_gru_scratch_bytes.argtypes = [I, I, I, I, I, I]
         lib.raft_sepconv_gru_scratch_bytes.restype = ctypes.c_int64
         _lib = lib
     return _lib
@@ -151,7 +152,8 @@ def gru_pass(h: torch.Tensor, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     the 1x5 pass, 1 the 5x1 pass. Returns h' [B, H, W, D] in h's dtype. The
     kernel takes D = 128 and X a multiple of 16 (bf16: at most 608); a CPU
     tensor runs the plain version at any width. In bf16 the launch first lays
-    w out in a scratch buffer as the tiles the tensor cores read.
+    w out in a scratch buffer as the tiles the tensor cores read; in fp32 the
+    scratch buffer holds r * h between the pass's two GEMMs.
     """
     _check_pass(h, x, w, b, axis)
     if not h.is_cuda:
@@ -170,13 +172,12 @@ def gru_pass(h: torch.Tensor, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         return out
     lib = _kernels()
     code = _DTYPE_CODE[h.dtype]
-    n_scratch = lib.raft_sepconv_gru_scratch_bytes(D, X, code)
-    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=h.device) if n_scratch else None
+    scratch = torch.empty(lib.raft_sepconv_gru_scratch_bytes(B, H, W, D, X, code),
+                          dtype=torch.uint8, device=h.device)
     with torch.cuda.device(h.device):
         err = lib.raft_sepconv_gru_pass(
-            h.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None, out.data_ptr(),
-            B, H, W, D, X, axis, code, torch.cuda.current_stream().cuda_stream,
+            h.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), B, H, W, D, X, axis, code, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"sepconv_gru_pass: CUDA error {err} at launch")

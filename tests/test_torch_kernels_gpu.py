@@ -24,7 +24,9 @@ sums its 5*(D+X)-long gate products in another order than its plain
 version's matmuls: fp32 within max_rel 1e-5; bf16 within one bf16 rounding
 step of the plain value, plus what one flipped rounding of r*h (a bf16 step of
 |rh| < 1, 2^-8) carries through the largest q-gate weight, plus 2e-5 *
-max|ref| for the sums' order. K8 (all levels) repeats K1's operations: exact.
+max|ref| for the sums' order; its fp32 route keeps the sum order of the
+kernel it replaced and is held to that kernel's outputs bit for bit (a
+digest). K8 (all levels) repeats K1's operations: exact.
 K1, K2 and K8 are also held bit for bit on hard cases: the training level
 shapes and rows shorter than a window, centres within 1e-6 of integers and
 just below them, far and border rows, 1% +inf volume values (so that a wrong
@@ -435,6 +437,62 @@ def test_ondemand_tiling_cases(cuda, kind, C, radius, dtype):
                            "corr_ondemand_bwd_df2": 2, "corr_ondemand_df2_plan": 3}
 
 
+DF1_GRIDS = [(46, 62), (7, 16), (1, 5)]
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,radius", [(128, 3), (256, 4), (128, 4), (256, 3)])
+@pytest.mark.parametrize("hw", DF1_GRIDS)
+def test_ondemand_df1_bf16_tiles(cuda, hw, C, radius, g_dtype):
+    """K5 with bf16 fmap2 (K4's tiles, drows x staged pixels on the tensor
+    cores in three bf16 pieces) against its plain version: query grids that
+    are no multiple of the 4 x 16 tile, 7x16 with an empty coarsest level,
+    1x5 with three empty levels, and (but for 1x5) a row of far
+    out-of-bounds queries, which must get no gradient; and run twice, bit
+    for bit (each element is written once, by one thread)."""
+    from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
+
+    h, w = hw
+    f1, levels, coords = _ondemand_case(cuda, h, w, C, torch.bfloat16, seed=h * w + C + radius,
+                                        far=h > 1)
+    B, Q, _ = coords.shape
+    if hw == (7, 16):
+        assert levels[-1].shape[1] == 0
+    gen = torch.Generator(device="cuda").manual_seed(radius)
+    g = torch.randn(B, Q, 4 * (2 * radius + 1) ** 2, device=cuda, generator=gen).to(g_dtype)
+    co.reset_launches()
+    df1 = co.corr_ondemand_bwd_df1(levels, coords, g, radius)
+    assert co.LAUNCHES["corr_ondemand_bwd_df1"] == 1
+    assert df1.dtype == torch.float32 and df1.shape == (B, Q, C)
+    assert _max_rel(df1, co.corr_ondemand_bwd_df1_plain(levels, coords, g, radius)) <= 2e-5
+    if h > 1:
+        assert torch.all(df1[:, :w] == 0)  # the far row
+    assert torch.equal(df1, co.corr_ondemand_bwd_df1(levels, coords, g, radius))  # no atomics
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["rows", "uniform"])
+def test_ondemand_df1_bf16_other_routes(cuda, kind, g_dtype):
+    """K5's bf16 kernel off the level-0 grid: `rows`, Q != H0 * W0 (tiles of
+    rows of 16 consecutive queries, a ragged last one); `uniform`, coords
+    spread over a 6x128 level, whose boxes are too wide to stage (the
+    per-query route at level 0)."""
+    from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
+
+    h, w = (9, 13) if kind == "rows" else TILING_SHAPES["uniform"]
+    f1, levels, _ = _ondemand_case(cuda, h, w, 256, torch.bfloat16, seed=len(kind), far=False)
+    coords = _tiling_coords("ragged" if kind == "rows" else "uniform", 2, h, w, seed=4).to(cuda)
+    if kind == "rows":
+        coords = coords[:, : h * w - 3].contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    g = torch.randn(2, coords.shape[1], 4 * 81, device=cuda, generator=gen).to(g_dtype)
+    df1 = co.corr_ondemand_bwd_df1(levels, coords, g, 4)
+    assert _max_rel(df1, co.corr_ondemand_bwd_df1_plain(levels, coords, g, 4)) <= 2e-5
+    if kind == "uniform":  # the forward's tiles take the per-query route too
+        co.corr_ondemand_fwd(f1, levels, coords, 4, torch.bfloat16)
+        assert co.corr_ondemand_fwd_routes()["per_query"] >= 1
+
+
 def test_ondemand_df2_is_deterministic(cuda):
     from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
 
@@ -493,7 +551,7 @@ def _check_gru_pass_bf16(got, ref, w):
 @pytest.mark.parametrize("B,H,W,X", [
     (16, 55, 128, 256), (1, 55, 128, 256), (1, 8, 37, 256), (1, 7, 37, 256),
     (2, 5, 100, 256), (3, 5, 5, 256), (1, 1, 9, 256), (1, 9, 1, 256), (1, 3, 300, 256),
-    (2, 13, 70, 144),
+    (2, 13, 70, 144), (2, 46, 62, 256),
 ])
 def test_gru_pass_matches_plain(cuda, B, H, W, X, dtype):
     """Both passes against the plain version. 16x55x128: the serving shape
@@ -503,7 +561,9 @@ def test_gru_pass_matches_plain(cuda, B, H, W, X, dtype):
     63..128, a block each, and 5-long columns packed twelve to a warpgroup;
     5x5 both ways short; 1-high and 1-wide: every tap but the centre is
     padding in one of the passes; 3x300: rows cut into segments of 124 with a
-    2-position halo; 13x70 at X = 144, another multiple of 16."""
+    2-position halo; 13x70 at X = 144, another multiple of 16; 2x46x62 the
+    fp32 training shape (fp32: 5,704 positions in blocks of 48 rows that run
+    across lines)."""
     from raft_optical_flow_tpu_torch.kernels import gru_fused as gf
 
     h, x, weights = _gru_case(cuda, B, H, W, dtype, seed=H * W + X, X=X)
@@ -518,6 +578,33 @@ def test_gru_pass_matches_plain(cuda, B, H, W, X, dtype):
             _check_gru_pass_bf16(got, ref, w)
         h = ref
     assert gf.LAUNCHES == {"sepconv_gru_pass": 2}
+
+
+# sha256 of K7's fp32 outputs in test_gru_pass_fp32_keeps_its_bits, as the
+# strip kernel that the fp32 GEMM route replaced gave them on the card
+K7_FP32_DIGEST = "f37c61469ab3278e7b02e13c36470ecbdc15dc952a39f66c16eb314758f24f1a"
+
+
+def test_gru_pass_fp32_keeps_its_bits(cuda):
+    """K7's fp32 route sums each output in the order of the strip kernel it
+    replaced (taps ascending, then channels ascending, one fmaf chain from 0)
+    and keeps its gate arithmetic, so its outputs are that kernel's bits:
+    both passes of each shape (the training and serving shapes, ragged and
+    1-wide lines, 300-long rows, X = 144), each pass fed the last one's
+    output, hash to the digest of that kernel's outputs on these inputs."""
+    import hashlib
+
+    from raft_optical_flow_tpu_torch.kernels import gru_fused as gf
+
+    digest = hashlib.sha256()
+    for B, H, W, X in ((2, 46, 62, 256), (1, 55, 128, 256), (1, 8, 37, 256), (2, 37, 1, 256),
+                       (1, 3, 300, 256), (3, 5, 5, 256), (2, 13, 70, 144)):
+        h, x, weights = _gru_case(cuda, B, H, W, torch.float32, seed=H * W + X, X=X)
+        for axis, part in ((2, weights[:6]), (1, weights[6:])):
+            w, b = gf.pass_weights(part, torch.float32)
+            h = gf.gru_pass(h, x, w, b, axis)
+            digest.update(h.cpu().numpy().tobytes())
+    assert digest.hexdigest() == K7_FP32_DIGEST
 
 
 def test_sepconv_gru_function_backward_on_card(cuda):

@@ -15,8 +15,9 @@ materialized volume; `--remat` recomputes each GRU iteration in the
 backward; `--fused_gru` runs the SepConvGRU through K7 (serving, or fp32
 training). Seeded random weights and data. The
 call runs twice to warm up, then once under `torch.profiler`. Prints the
-device time by kernel (the 20 largest), the time per group (the port's CUDA
-kernels, convolutions, matmuls, the rest), and the device busy share:
+device time by kernel (the 20 largest, then each of the port's), the time
+per group (the port's CUDA kernels, convolutions, matmuls, the rest), and
+the device busy share:
 summed kernel time over the host-clock wall time of the profiled call (the
 profiler's own host overhead is inside that wall time, so the share is a
 lower bound). `--trace PATH` also writes the Chrome trace. Needs a CUDA card.
@@ -133,6 +134,10 @@ def main() -> int:
         print(f"  group {name}: {ms:.3f} ms ({ms / device_ms:.4f})")
     for ms, count, key in kernels[:20]:
         print(f"  {ms:9.3f} ms {count:6d}x  {key[:110]}")
+    print("  the port's kernels:")
+    for ms, count, key in kernels:
+        if GROUPS[0][1].search(key):
+            print(f"  {ms:9.3f} ms {count:6d}x  {key[:110]}")
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)
