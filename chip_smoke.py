@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`raft_optical_flow_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--phases device,kernels,small,standard,train,ondemand,fused_gru,timing]
+    python3 chip_smoke.py [--phases device,kernels,small,standard,train,ondemand,fused_gru,lfn3,timing]
 
 Phases (each prints one line when it ends; any failure raises and the exit
 code is not 0):
@@ -61,6 +61,21 @@ code is not 0):
             unfused one pinned to K7's GRU values, and against itself; the
             bf16 fused training step must raise; alternate_corr with
             fused_gru;
+  lfn3      LiteFlowNet3, plain PyTorch (no port kernel on its path; none may
+            launch), fp32 with TF32 off unless bf16 is named: standard and
+            S+PseudoReg at the goldens' params against the reference goldens
+            (tests/test_lfn3_parity.py's tolerances) and standard under bf16
+            against the fp32 golden; all four variants on the card against
+            the port on the CPU (64x96, batch 2, flows max|d| <= 1e-4);
+            serving at 436x1024 (scaled to 448x1024 inside): standard and S
+            in fp32 and bf16 at batch 16 and 1, the PseudoReg variants in
+            bf16 at batch 1, the median ms/call of 5 after a warm-up,
+            pairs/s, peak memory and bf16-vs-fp32 EPE; training, standard and
+            S+PseudoReg fp32: ms per forward+backward and peak memory at
+            batch 8, 384x768 (cli/train_flow.py), and at batch 2, 64x96 the
+            card's loss (rel 1e-5) and each layer's gradient against the
+            CPU, within max(2e-5, 2x the spread of the card's step run
+            twice);
   timing    K1, K2, K4, K7 and K8 at the batch-16 serving shapes, K3, K5 and K6 at
             the batch-4 training shapes, each first held against its plain
             version on the inputs it is timed on: kernel, plain version, a
@@ -110,7 +125,8 @@ import torch
 import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "kernels", "small", "standard", "train", "ondemand", "fused_gru", "timing")
+PHASES = ("device", "kernels", "small", "standard", "train", "ondemand", "fused_gru", "lfn3",
+          "timing")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16, dense tensor cores
@@ -1309,6 +1325,241 @@ def phase_fused_gru(state):
     _fused_train(state)
     _fused_ondemand(state)
     log("phase fused_gru: ok")
+
+
+# ---------------------------------------------------------------------------
+# LiteFlowNet3 (plain PyTorch: no port kernel lies on its path)
+
+LFN3_VARIANTS = {
+    "standard": {},
+    "s": {"use_s_version": True},
+    "standard_pseudoreg": {"use_pseudo_regularization": True},
+    "s_pseudoreg": {"use_s_version": True, "use_pseudo_regularization": True},
+}
+LFN3_SERVE_HW = (436, 1024)  # tools/bench_families.py: Sintel frames, scaled to 448x1024 inside
+LFN3_TRAIN_HW = (384, 768)  # cli/train_flow.py's crop and batch defaults
+LFN3_TRAIN_B = 8
+LFN3_FLOW_TOL = 1e-4  # card against the port on the CPU: the port-vs-JAX bar
+
+
+def _lfn3_state_dict(variant, goldens):
+    """The variant's weights from the goldens: each from the golden of the
+    nearer variant that has its name and shape (the two goldens cover every
+    name of the four variants)."""
+    from raft_optical_flow_tpu_torch.models import LFN3Config, LiteFlowNet3
+
+    kw = LFN3_VARIANTS[variant]
+    first = "s_pseudoreg" if kw.get("use_s_version") else "standard"
+    order = [goldens[first]] + [g for n, g in goldens.items() if n != first]
+    shapes = LiteFlowNet3(LFN3Config(**kw), device="cpu").state_dict()
+    return {k: next(g[k] for g in order if k in g and g[k].shape == v.shape)
+            for k, v in shapes.items()}
+
+
+def _lfn3(variant, sd, device="cuda", dtype=torch.float32):
+    from raft_optical_flow_tpu_torch.models import LFN3Config, LiteFlowNet3
+
+    model = LiteFlowNet3(LFN3Config(compute_dtype=dtype, **LFN3_VARIANTS[variant]), device=device)
+    model.load_state_dict(sd)
+    return model
+
+
+def _lfn3_loss(model, images, gt, valid):
+    """The JAX trainer's convention (`train/trainers.py:83-86`): the full-size
+    flow, then the levels finest first, times div_flow."""
+    from raft_optical_flow_tpu_torch.losses import multiscale_sequence_loss
+
+    out = model(images, training=True)
+    preds = [out["flows"][:, 0]] + [p * model.config.div_flow for p in reversed(out["flow_preds"])]
+    return multiscale_sequence_loss(preds, gt, valid)
+
+
+def _lfn3_grads(model, images, gt, valid):
+    model.zero_grad(set_to_none=True)
+    loss = _lfn3_loss(model, images, gt, valid)
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def _lfn3_fidelity(goldens):
+    """Standard and S+PseudoReg at the goldens' params against the reference
+    outputs, at tests/test_lfn3_parity.py's tolerances; the bf16 policy at
+    test_lfn3_bf16_policy_close's bar."""
+    out = {}
+    for name in ("standard", "s_pseudoreg"):
+        g = np.load(os.path.join(REPO, "tests", "goldens", f"lfn3_{name}.npz"))
+        images = torch.from_numpy(g["images"]).permute(0, 1, 3, 4, 2).contiguous().cuda()
+        with torch.no_grad():
+            res = _lfn3(name, goldens[name])(images, training=True)
+        flows = res["flows"].permute(0, 1, 4, 2, 3).cpu().numpy()
+        confs = res["confs"].permute(0, 1, 4, 2, 3).cpu().numpy()
+        d_flow = float(np.abs(flows - g["flows"]).max())
+        d_conf = float(np.abs(confs - g["confs"]).max())
+        d_preds = max(float(np.abs(p.permute(0, 3, 1, 2).cpu().numpy() - g[f"{key}_{i}"]).max())
+                      for key in ("flow_pred", "conf_pred")
+                      for i, p in enumerate(res[key + "s"]))
+        log(f"lfn3 {name} fp32 vs golden: flows max|d|={d_flow!r} (atol 3e-3) confs "
+            f"max|d|={d_conf!r} (1e-3) preds max|d|={d_preds!r} (5e-4)")
+        if not (d_flow <= 3e-3 and d_conf <= 1e-3 and d_preds <= 5e-4):
+            raise AssertionError(f"lfn3 {name}: does not match the golden")
+        out[name] = {"flows": d_flow, "confs": d_conf, "preds": d_preds}
+    g = np.load(os.path.join(REPO, "tests", "goldens", "lfn3_standard.npz"))
+    images = torch.from_numpy(g["images"]).permute(0, 1, 3, 4, 2).contiguous().cuda()
+    res = _lfn3("standard", goldens["standard"], dtype=torch.bfloat16)(images)
+    diff = np.abs(res["flows"].permute(0, 1, 4, 2, 3).cpu().numpy() - g["flows"])
+    conf = np.abs(res["confs"].permute(0, 1, 4, 2, 3).cpu().numpy() - g["confs"]).mean()
+    log(f"lfn3 standard bf16 vs fp32 golden: flows dtype={res['flows'].dtype} mean|d|="
+        f"{float(diff.mean())!r} (< 5e-3) max|d|={float(diff.max())!r} (< 5e-2) confs "
+        f"mean|d|={float(conf)!r} (< 5e-3)")
+    if not (res["flows"].dtype == torch.float32 and diff.mean() < 5e-3 and diff.max() < 5e-2
+            and conf < 5e-3):
+        raise AssertionError("lfn3 standard bf16 is not close to the fp32 golden")
+    out["standard_bf16"] = {"flows_mean": float(diff.mean()), "flows_max": float(diff.max()),
+                            "confs_mean": float(conf)}
+    return out
+
+
+def _lfn3_card_vs_cpu(goldens):
+    """All four variants at 64x96, batch 2: the card's flows against the
+    port's on the CPU, same weights, same process."""
+    images = torch.from_numpy(np.random.RandomState(0).uniform(
+        0, 1, (2, 2, 64, 96, 3)).astype(np.float32))
+    out = {}
+    for variant in LFN3_VARIANTS:
+        sd = _lfn3_state_dict(variant, goldens)
+        ref = _lfn3(variant, sd, "cpu")(images)["flows"]
+        got = _lfn3(variant, sd)(images.cuda())["flows"].cpu()
+        d = float((got - ref).abs().max())
+        out[variant] = d
+        log(f"lfn3 {variant} fp32 card vs CPU: flows max|d|={d!r} (tol {LFN3_FLOW_TOL}) "
+            f"mean|flow|={float(ref.abs().mean())!r}")
+        if not d <= LFN3_FLOW_TOL:
+            raise AssertionError(f"lfn3 {variant}: the card disagrees with the CPU")
+    return out
+
+
+def _lfn3_serving(goldens, n_timed=5):
+    """Sintel-size serving at the goldens' params: ms/call (the median of
+    n_timed calls after one warm-up, host clock around a synchronize),
+    pairs/s and peak memory; bf16 against fp32 mean EPE on the same frames."""
+    H, W = LFN3_SERVE_HW
+    runs = [(v, dt, B) for v in ("standard", "s") for dt in (torch.float32, torch.bfloat16)
+            for B in (16, 1)]
+    runs += [(v, torch.bfloat16, 1) for v in ("standard_pseudoreg", "s_pseudoreg")]
+    frames = {}
+    for B in (16, 1):
+        g = torch.Generator(device="cuda").manual_seed(B)
+        frames[B] = torch.rand(B, 2, H, W, 3, device="cuda", generator=g)
+    out, fp32_flows = {}, {}
+    for variant, dt, B in runs:
+        model = _lfn3(variant, _lfn3_state_dict(variant, goldens), dtype=dt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flows = model(frames[B])["flows"]
+        times = []
+        for _ in range(n_timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(frames[B])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if tuple(flows.shape) != (B, 1, H, W, 2) or not torch.isfinite(flows).all():
+            raise AssertionError(f"lfn3 {variant} serving: wrong shape or not finite")
+        ms = float(np.median(times))
+        key = f"{variant}_{'fp32' if dt == torch.float32 else 'bf16'}_bs{B}"
+        row = {"ms": ms, "pairs_per_s": B * 1e3 / ms, "peak_gib": peak,
+               "ms_all": [round(t, 3) for t in times]}
+        if dt == torch.float32:
+            fp32_flows[(variant, B)] = flows
+        elif (variant, B) in fp32_flows:
+            epe = torch.linalg.norm(flows - fp32_flows.pop((variant, B)), dim=-1)
+            row["epe_vs_fp32_mean"] = float(epe.mean())
+            row["epe_vs_fp32_max"] = float(epe.max())
+        out[key] = row
+        log(f"lfn3 serving {key} {H}x{W}: {ms:.3f} ms/call (median of {n_timed}: "
+            f"{row['ms_all']}) {row['pairs_per_s']:.3f} pairs/s peak_mem={peak:.3f} GiB "
+            f"mean|flow|={float(flows.abs().mean())!r}"
+            + (f" bf16-vs-fp32 EPE mean={row['epe_vs_fp32_mean']!r} max={row['epe_vs_fp32_max']!r}"
+               if "epe_vs_fp32_mean" in row else ""))
+        del model, flows
+        torch.cuda.empty_cache()
+    return out
+
+
+def _lfn3_gradients(goldens, n_timed=3):
+    """Standard and S+PseudoReg, fp32, at the goldens' params: ms per
+    forward+backward and peak memory at batch 8, 384x768; at batch 2, 64x96
+    the card's loss and per-layer gradients against the port on the CPU, and
+    the card's step run twice (the spread of the atomic adds in PyTorch's
+    backward of the resizes and gathers)."""
+    out = {}
+    for variant in ("standard", "s_pseudoreg"):
+        sd = goldens[variant]
+        model = _lfn3(variant, sd)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        B, (H, W) = LFN3_TRAIN_B, LFN3_TRAIN_HW
+        images = torch.rand(B, 2, H, W, 3, device="cuda", generator=g)
+        gt = torch.rand(B, H, W, 2, device="cuda", generator=g) * 10.0 - 5.0
+        valid = torch.ones(B, H, W, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _lfn3_grads(model, images, gt, valid)
+        times = []
+        for _ in range(n_timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _lfn3_grads(model, images, gt, valid)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del images, gt, valid
+        torch.cuda.empty_cache()
+
+        rng = np.random.RandomState(0)
+        small = [torch.from_numpy(a) for a in (
+            rng.uniform(0, 1, (2, 2, 64, 96, 3)).astype(np.float32),
+            rng.uniform(-5, 5, (2, 64, 96, 2)).astype(np.float32),
+            (rng.rand(2, 64, 96) > 0.2).astype(np.float32))]
+        loss1, g1 = _lfn3_grads(model, *[t.cuda() for t in small])
+        loss2, g2 = _lfn3_grads(model, *[t.cuda() for t in small])
+        cpu_loss, cpu_grads = _lfn3_grads(_lfn3(variant, sd, "cpu"), *small)
+        spread = layer_max_rel(g2, g1)
+        rels = layer_max_rel({k: v.cpu() for k, v in g1.items()}, cpu_grads)
+        loss_rel = abs(loss1 - cpu_loss) / abs(cpu_loss)
+        bad = {n: r for n, r in rels.items() if not r <= max(2e-5, 2 * spread[n])}
+        worst = max(rels, key=rels.get)
+        ms = float(np.median(times))
+        out[variant] = {"ms": ms, "ms_all": [round(t, 3) for t in times], "peak_gib": peak,
+                        "loss_rel": loss_rel, "worst_layer": worst, "worst_rel": rels[worst],
+                        "spread_max": max(spread.values()), "twice_loss_equal": loss1 == loss2}
+        log(f"lfn3 grad {variant} fp32 batch={B} {H}x{W}: {ms:.3f} ms per forward+backward "
+            f"(median of {n_timed}: {out[variant]['ms_all']}) peak_mem={peak:.3f} GiB; batch 2 "
+            f"64x96 card vs CPU: loss rel={loss_rel!r} worst layer {worst} max_rel="
+            f"{rels[worst]!r}; card twice: loss equal={loss1 == loss2} worst spread="
+            f"{max(spread.values())!r} ({max(spread, key=spread.get)})")
+        if not loss_rel <= 1e-5 or bad:
+            raise AssertionError(f"lfn3 {variant} gradients: loss rel {loss_rel!r}, layers past "
+                                 f"max(2e-5, 2x spread): {bad}")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_lfn3(state):
+    from raft_optical_flow_tpu_torch.utils.weights import load_flax_npz
+
+    t0 = time.perf_counter()
+    goldens = {name: load_flax_npz(os.path.join(REPO, "tests", "goldens",
+                                                f"lfn3_{name}_params.npz"))
+               for name in ("standard", "s_pseudoreg")}
+    reset_all()
+    res = {"fidelity": _lfn3_fidelity(goldens), "card_vs_cpu": _lfn3_card_vs_cpu(goldens),
+           "serving": _lfn3_serving(goldens), "gradients": _lfn3_gradients(goldens)}
+    expect_launches(launch_counts(), {}, "lfn3 (no port kernel on its path)")
+    res["seconds"] = time.perf_counter() - t0
+    state["lfn3"] = res
+    log(f"phase lfn3: ok in {res['seconds']:.1f} s")
 
 
 def _bytes_needed(levels, coords_flat, radius, out_itemsize):

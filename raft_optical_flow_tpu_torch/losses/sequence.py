@@ -1,18 +1,22 @@
-"""RAFT's supervised sequence loss.
+"""Supervised flow losses: RAFT's sequence loss and LiteFlowNet3's
+multi-scale loss.
 
-Counterpart of `raft_optical_flow_tpu/losses/sequence.py::sequence_loss`:
-gamma-weighted L1 over the GRU iterations; validity is
+Counterpart of `raft_optical_flow_tpu/losses/sequence.py`.
+`sequence_loss`: gamma-weighted L1 over the GRU iterations; validity is
 (valid >= 0.5) & (|gt| < max_flow); the mean runs over ALL pixels with the
 invalid ones zeroed (not over the valid count: the reference RAFT's quirk,
 kept); epe/1px/3px/5px over the valid pixels of the last prediction.
-`multiscale_sequence_loss` (LiteFlowNet3) is not ported yet.
+`multiscale_sequence_loss`: per-level L1 over the valid pixels, normalized
+by their count.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
+
+from raft_optical_flow_tpu_torch.ops.grid import resize_bilinear, resize_nearest
 
 MAX_FLOW = 400.0
 
@@ -49,3 +53,39 @@ def sequence_loss(
             "5px": torch.sum((epe < 5).to(epe.dtype) * vf) / denom,
         }
     return flow_loss, metrics
+
+
+def multiscale_sequence_loss(
+    flow_preds: Sequence[torch.Tensor],
+    flow_gt: torch.Tensor,
+    valid: torch.Tensor,
+    weights: Sequence[float] = (0.32, 0.08, 0.02, 0.01, 0.005),
+    max_flow: float = MAX_FLOW,
+) -> torch.Tensor:
+    """Multi-scale L1 loss of the coarse-to-fine models (LiteFlowNet3).
+
+    flow_preds: FINEST first, [N, h, w, 2] each (the full-size flow, then the
+    pyramid levels, which the caller has multiplied by div_flow); flow_gt
+    [N, H, W, 2], valid [N, H, W]. For a level smaller than the GT: the GT
+    resized with half-pixel bilinear weights and scaled by w / W (both
+    components, as the reference does), the valid mask resized nearest as
+    the JAX package picks its rows (`ops/grid.py::resize_nearest`). Level i
+    adds weights[i] (the last weight past the end) times the sum of the
+    valid L1 over (valid count + 1e-8).
+    """
+    mag = torch.sqrt(torch.sum(flow_gt**2, dim=-1))
+    valid_f = ((valid >= 0.5) & (mag < max_flow)).to(flow_gt.dtype)[..., None]
+    H, W = flow_gt.shape[1:3]
+    total = 0.0
+    for i, pred in enumerate(flow_preds):
+        w_i = weights[i] if i < len(weights) else weights[-1]
+        h, wd = pred.shape[1:3]
+        if (h, wd) != (H, W):
+            scale = torch.tensor(wd / W, dtype=flow_gt.dtype)
+            gt_i = resize_bilinear(flow_gt, (h, wd)) * scale.to(flow_gt.device)
+            v_i = (resize_nearest(valid_f, (h, wd)) > 0.5).to(flow_gt.dtype)
+        else:
+            gt_i, v_i = flow_gt, valid_f
+        l1 = torch.abs(pred - gt_i)
+        total = total + w_i * torch.sum(v_i * l1) / (torch.sum(v_i) + 1e-8)
+    return total

@@ -6,7 +6,11 @@ inside; the model's public tensors stay NHWC.
 Compute-dtype policy: parameters stay fp32 and every conv and norm runs in the
 dtype of its input. The model casts its inputs to the compute dtype once
 (fp32, or bf16 under the mixed-precision policy), which plays the part of the
-JAX package's `compute_dtype_scope`.
+JAX package's `compute_dtype_scope`. A conv built with `compute_dtype` casts
+its input to that dtype instead, as flax's `nn.Conv(dtype=...)` does:
+LiteFlowNet3 concatenates fp32 flow with bf16 features and still runs the
+next conv in bf16. Transposed convs (`deconv`) run in their input's dtype,
+as the JAX package's `TorchConvTranspose` does.
 
 fp32 parity: the JAX fp32 path runs every contraction at HIGHEST precision,
 so the fp32 policy needs TF32 off for both cuBLAS matmuls and cuDNN convs
@@ -15,6 +19,7 @@ so the fp32 policy needs TF32 off for both cuBLAS matmuls and cuDNN convs
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Union
 
 import torch
@@ -31,20 +36,66 @@ def fp32_policy() -> None:
 
 
 class Conv2d(nn.Conv2d):
-    """Conv2d with torch-style symmetric padding that runs in its input's dtype
-    (fp32 parameters are cast to the activation dtype, bias included)."""
+    """Conv2d with torch-style symmetric padding that runs in its input's dtype,
+    or in `compute_dtype` when one is given (fp32 parameters are cast to the
+    activation dtype, bias included)."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(
-            x, self.weight.to(x.dtype), bias, self.stride, self.padding,
-            self.dilation, self.groups,
-        )
+        if self.compute_dtype is None:
+            bias = None if self.bias is None else self.bias.to(x.dtype)
+            return F.conv2d(
+                x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+                self.dilation, self.groups,
+            )
+        # flax's nn.Conv(dtype=...): the conv's output rounds to the compute
+        # dtype, then the bias is added in it (two roundings under bf16)
+        x = x.to(self.compute_dtype)
+        y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, self.padding,
+                     self.dilation, self.groups)
+        return y if self.bias is None else y.add_(self.bias.to(x.dtype)[:, None, None])
 
 
 def conv(cin: int, cout: int, kernel_size: IntPair = 3, stride: IntPair = 1,
-         padding: IntPair = 1) -> Conv2d:
-    return Conv2d(cin, cout, kernel_size, stride, padding)
+         padding: IntPair = 1, compute_dtype: Optional[torch.dtype] = None) -> Conv2d:
+    return Conv2d(cin, cout, kernel_size, stride, padding, compute_dtype=compute_dtype)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """ConvTranspose2d that runs in its input's dtype (the JAX package's
+    `TorchConvTranspose`, which casts its kernel to the input's dtype).
+    Weight layout (in, out / groups, kh, kw): the flax kernel
+    (kh, kw, out / groups, in) under the HWIO -> OIHW transpose of
+    `utils/weights.py`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the bias is added after the output's rounding to x's dtype, as
+        # `TorchConvTranspose` adds it
+        y = F.conv_transpose2d(
+            x, self.weight.to(x.dtype), None, self.stride, self.padding,
+            self.output_padding, self.groups, self.dilation,
+        )
+        return y if self.bias is None else y.add_(self.bias.to(x.dtype)[:, None, None])
+
+
+def deconv(cin: int, cout: int, kernel_size: int = 4, stride: int = 2, padding: int = 1,
+           bias: bool = True, groups: int = 1) -> ConvTranspose2d:
+    """Transposed conv of torch's geometry: out = (H - 1) * stride - 2 * padding + k."""
+    return ConvTranspose2d(cin, cout, kernel_size, stride, padding, bias=bias, groups=groups)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.1) -> torch.Tensor:
+    """`jax.nn.leaky_relu`: the slope is a weakly typed constant there, so it
+    is rounded to x's dtype first (0.1 is 0.10009765625 in bf16)."""
+    return F.leaky_relu(x, _rounded(negative_slope, x.dtype))
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -172,7 +223,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded init matching the JAX package's initializers in scale.
 
     Conv kernels: U(+-1/sqrt(fan_in)) (torch's Conv2d default, the JAX
-    package's TORCH_DEFAULT_INIT); conv biases zero; norms identity. Modules
+    package's TORCH_DEFAULT_INIT); transposed-conv kernels
+    (in, out/g, kh, kw): U(+-sqrt(3 / (out/g * kh * kw))), the JAX package's
+    `TorchConvTranspose` init; conv biases zero; norms identity. Modules
     with `kaiming_out = True` (the RAFT encoders) draw their conv kernels from
     N(0, 2/fan_out) instead, truncated at two standard deviations
     (`KAIMING_OUT_INIT`). The numbers differ from the JAX package's at the same
@@ -184,12 +237,15 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         for m in p.modules()
     }
     for m in module.modules():
-        if not isinstance(m, nn.Conv2d):
+        if not isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             continue
         w = m.weight
         cout, cin_g, kh, kw = w.shape
         with torch.no_grad():
-            if id(m) in kaiming:
+            if isinstance(m, nn.ConvTranspose2d):
+                bound = (3.0 / (cin_g * kh * kw)) ** 0.5
+                w.copy_((2.0 * torch.rand(w.shape, generator=generator) - 1.0) * bound)
+            elif id(m) in kaiming:
                 # flax's truncated normal keeps unit variance after truncation
                 std = (2.0 / (cout * kh * kw)) ** 0.5 / 0.87962566103423978
                 t = torch.randn(w.shape, generator=generator)

@@ -1,12 +1,18 @@
-"""Coordinate grids and the align-corners resize behind `upflow8`.
+"""Coordinate grids, bilinear sampling and resizes.
 
 Counterpart of `raft_optical_flow_tpu/ops/grid.py` (`coords_grid`,
-`resize_bilinear_align_corners`, `upflow8`). NHWC in and out.
+`bilinear_sampler`, `resize_bilinear_align_corners`, `resize_bilinear`,
+`upflow8`), plus `resize_nearest`, the nearest resize of
+`jax.image.resize`. NHWC in and out. A tensor given as an NHWC view of a
+contiguous NCHW tensor (`x.permute(0, 2, 3, 1)`) goes through
+`bilinear_sampler` and `resize_bilinear` without a copy, and what they
+return is such a view again: the models call them from NCHW code.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def coords_grid(batch: int, ht: int, wd: int, device="cuda",
@@ -18,6 +24,78 @@ def coords_grid(batch: int, ht: int, wd: int, device="cuda",
         indexing="ij",
     )
     return torch.stack([x, y], dim=-1)[None].expand(batch, ht, wd, 2)
+
+
+def _bilinear_taps(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of NCHW img at pixel positions x, y [N, Q]: [N, C, Q].
+
+    Four gathers at the floor's corners, each tap outside the image zero.
+    The JAX package's form for images under 2 pixels high or wide.
+    """
+    N, C, H, W = img.shape
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    wx = (x - x0).to(img.dtype)[:, None]
+    wy = (y - y0).to(img.dtype)[:, None]
+    x0i = x0.long()
+    y0i = y0.long()
+    flat = img.reshape(N, C, H * W)
+
+    def tap(xi, yi):
+        idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+        v = torch.gather(flat, 2, idx[:, None].expand(N, C, idx.shape[1]))
+        inb = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
+        return torch.where(inb[:, None], v, torch.zeros((), dtype=img.dtype, device=img.device))
+
+    return (tap(x0i, y0i) * (1 - wy) * (1 - wx) + tap(x0i + 1, y0i) * (1 - wy) * wx
+            + tap(x0i, y0i + 1) * wy * (1 - wx) + tap(x0i + 1, y0i + 1) * wy * wx)
+
+
+def bilinear_sampler(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of img [N, H, W, C] at pixel coords [N, *S, 2] (x, y),
+    torch `grid_sample(align_corners=True, padding_mode="zeros")` semantics:
+    (0, 0) is the centre of the top-left pixel, taps outside the image
+    contribute zero. Returns [N, *S, C].
+
+    The JAX package's sampler in its 'zeros' mode (its 'border' mode and
+    in-bounds mask have no caller on the port's paths yet). The taps and
+    weights are JAX's, in pixel coordinates: the 2x2 patch at the root
+    clip(floor(p), 0, size-2), each tap weighted by the hat
+    max(1 - |p - tap|, 0), which is zero for a tap the position is a pixel
+    or more away from (so outside taps never count). The four weights are
+    rounded to img's dtype, as the JAX package does under the bf16 policy.
+    At the kinks (a position on a pixel) the gradient takes JAX's one-sided
+    choices. Four gathers, no normalisation to [-1, 1]: a one-ulp position
+    error of that normalisation is 6e-5 px at W = 1024.
+    """
+    N, H, W, C = img.shape
+    S = coords.shape[1:-1]
+    x = coords[..., 0].reshape(N, -1)
+    y = coords[..., 1].reshape(N, -1)
+    nchw = img.permute(0, 3, 1, 2)
+    if H < 2 or W < 2:
+        out = _bilinear_taps(nchw, x, y)
+    else:
+        x0 = torch.clamp(torch.floor(x), 0.0, W - 2.0)
+        y0 = torch.clamp(torch.floor(y), 0.0, H - 2.0)
+
+        def hat(p, t):
+            d = p - t
+            d = torch.where(d >= 0, d, -d)  # |d|, with jnp.abs's gradient +1 at 0
+            return torch.maximum(1.0 - d, d.new_zeros(())).to(img.dtype)[:, None]
+
+        wy0, wy1 = hat(y, y0), hat(y, y0 + 1.0)
+        wx0, wx1 = hat(x, x0), hat(x, x0 + 1.0)
+        root = y0.long() * W + x0.long()
+        flat = nchw.reshape(N, C, H * W)
+
+        def tap(off):
+            idx = (root + off)[:, None].expand(N, C, root.shape[1])
+            return torch.gather(flat, 2, idx)
+
+        out = (tap(0) * (wy0 * wx0) + tap(1) * (wy0 * wx1)
+               + tap(W) * (wy1 * wx0) + tap(W + 1) * (wy1 * wx1))
+    return out.reshape(N, C, *S).movedim(1, -1)
 
 
 def _linspace_to(stop: float, num: int, device) -> torch.Tensor:
@@ -80,3 +158,40 @@ def upflow8(flow: torch.Tensor) -> torch.Tensor:
     """8x align-corners bilinear upsample of [N, h, w, 2] flow, values x8."""
     _, h, w, _ = flow.shape
     return 8.0 * resize_bilinear_align_corners(flow, (8 * h, 8 * w))
+
+
+def resize_bilinear(img: torch.Tensor, out_hw) -> torch.Tensor:
+    """Bilinear resize of [..., H, W, C] with half-pixel centres (torch
+    `align_corners=False`, no antialiasing), the JAX package's
+    `jax.image.resize(method="bilinear", antialias=False)`. JAX computes a
+    weighted sum and torch interpolates, so the two round differently: equal
+    within a few ulp, not bit for bit."""
+    *lead, H, W, C = img.shape
+    x = img.reshape(-1, H, W, C).permute(0, 3, 1, 2)
+    out = F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False)
+    return out.permute(0, 2, 3, 1).reshape(*lead, *out_hw, C)
+
+
+def nearest_indices(in_size: int, out_size: int, device="cuda") -> torch.Tensor:
+    """The source rows of a nearest resize from in_size to out_size, as the
+    JAX package's compiled `jax.image.resize(method="nearest")` picks them:
+    floor((i + 0.5) * fl(in * fl(1 / out))) in fp32. XLA folds
+    (i + 0.5) * in / out into that product; neither the exact quotient nor
+    torch's 'nearest' or 'nearest-exact' picks the same rows at every size
+    (at 436 -> 109 both differ in every row)."""
+    inv = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(out_size, dtype=torch.float32)
+    scale = torch.tensor(in_size, dtype=torch.float32) * inv
+    pos = (torch.arange(out_size, dtype=torch.float32) + 0.5) * scale
+    return torch.floor(pos).long().to(device)
+
+
+def resize_nearest(img: torch.Tensor, out_hw) -> torch.Tensor:
+    """Nearest resize of [..., H, W, C] to out_hw, `nearest_indices` rows and
+    columns: the JAX package's `jax.image.resize(method="nearest")`."""
+    H, W = img.shape[-3], img.shape[-2]
+    out_h, out_w = out_hw
+    if out_h != H:
+        img = img.index_select(img.dim() - 3, nearest_indices(H, out_h, img.device))
+    if out_w != W:
+        img = img.index_select(img.dim() - 2, nearest_indices(W, out_w, img.device))
+    return img
