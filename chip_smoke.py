@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`raft_optical_flow_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--phases device,kernels,small,standard,train,ondemand,fused_gru,lfn3,timing]
+    python3 chip_smoke.py [--phases device,kernels,small,standard,train,ondemand,fused_gru,lfn3,
+                                    simple_flow,ifnet,timing]
 
 Phases (each prints one line when it ends; any failure raises and the exit
 code is not 0):
@@ -76,6 +77,26 @@ code is not 0):
             card's loss (rel 1e-5) and each layer's gradient against the
             CPU, within max(2e-5, 2x the spread of the card's step run
             twice);
+  simple_flow  SimpleFlowNet, plain PyTorch (no port kernel on its path; none
+            may launch), fp32 with TF32 off unless bf16 is named: at the
+            golden's params against the reference golden (atol 1e-3 per
+            scale) and under bf16 against the same golden (per scale mean
+            |d| < 4e-2, max < 2e-1); the card against the port on the CPU
+            (64x96, batch 2, flows max|d| <= 1e-4); serving at 432x1024
+            (tools/bench_families.py) in fp32 and bf16 at batch 16 and 1,
+            and at 256x256 batch 1 (the reference's shape): the median
+            ms/call of 5 after a warm-up, pairs/s, peak memory; the
+            supervised gradient step, BatchNorms in training mode: ms per
+            forward+backward and peak memory at batch 8, 384x768, and at
+            batch 2, 64x96 the card against the CPU as in phase lfn3;
+  ifnet     IFNet, the same way: fp32 against the golden (flows atol 2e-3,
+            masks and warped images 1e-3), bf16 (flow_2 mean |d| < 5e-3,
+            max < 5e-2), feature_res_warp against the reference order
+            (flow_0 equal, later flows mean < 0.06, max < 0.5); card vs CPU
+            with and without feature_res_warp; serving at 432x1024 in fp32,
+            bf16 and bf16 with feature_res_warp at batch 16 and 1; gradient
+            steps supervised (flow[..., 2:4] through simple_flow_loss) and
+            unsupervised (laploss);
   timing    K1, K2, K4, K7 and K8 at the batch-16 serving shapes, K3, K5 and K6 at
             the batch-4 training shapes, each first held against its plain
             version on the inputs it is timed on: kernel, plain version, a
@@ -113,6 +134,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -126,7 +148,7 @@ import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "kernels", "small", "standard", "train", "ondemand", "fused_gru", "lfn3",
-          "timing")
+          "simple_flow", "ifnet", "timing")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16, dense tensor cores
@@ -1328,6 +1350,89 @@ def phase_fused_gru(state):
 
 
 # ---------------------------------------------------------------------------
+# The plain-PyTorch families (LiteFlowNet3, SimpleFlowNet, IFNet): shared timing
+
+FAMILY_TRAIN_HW = (384, 768)  # cli/train_flow.py's crop and batch defaults
+FAMILY_TRAIN_B = 8
+
+
+def _median_ms(fn, n_timed=5):
+    """fn() once to warm up, then n_timed timed calls (host clock around a
+    synchronize): (the warm-up's output, median ms, every ms, peak GiB
+    since the warm-up began)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    times = []
+    for _ in range(n_timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.median(times)), [round(t, 3) for t in times], \
+        torch.cuda.max_memory_allocated() / 2**30
+
+
+def _step_grads(model, loss_fn, inputs):
+    """One forward, loss and backward (no optimizer): (loss, {name: grad})."""
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model, *inputs)
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def _gradient_rows(tag, cases, n_timed=3):
+    """cases: (key, make_model(device), loss_fn(model, img1, img2, gt, valid)).
+    Each: ms per forward+backward and peak memory at batch 8, 384x768; at
+    batch 2, 64x96 the card's loss (rel 1e-5) and each layer's gradient
+    against the port on the CPU, within max(2e-5, 2x the spread of the
+    card's step run twice: atomic adds in PyTorch's backward of the
+    gathers and resizes)."""
+    out = {}
+    for key, make, loss_fn in cases:
+        B, (H, W) = FAMILY_TRAIN_B, FAMILY_TRAIN_HW
+        g = torch.Generator(device="cuda").manual_seed(3)
+        big = [torch.rand(B, H, W, 3, device="cuda", generator=g),
+               torch.rand(B, H, W, 3, device="cuda", generator=g),
+               torch.rand(B, H, W, 2, device="cuda", generator=g) * 10.0 - 5.0,
+               torch.ones(B, H, W, device="cuda")]
+        model = make("cuda")
+        _, ms, ms_all, peak = _median_ms(lambda: _step_grads(model, loss_fn, big), n_timed)
+        del big
+        torch.cuda.empty_cache()
+
+        rng = np.random.RandomState(0)
+        small = [torch.from_numpy(a) for a in (
+            rng.uniform(0, 1, (2, 64, 96, 3)).astype(np.float32),
+            rng.uniform(0, 1, (2, 64, 96, 3)).astype(np.float32),
+            rng.uniform(-5, 5, (2, 64, 96, 2)).astype(np.float32),
+            (rng.rand(2, 64, 96) > 0.2).astype(np.float32))]
+        loss1, g1 = _step_grads(model, loss_fn, [t.cuda() for t in small])
+        loss2, g2 = _step_grads(model, loss_fn, [t.cuda() for t in small])
+        cpu_loss, cpu_grads = _step_grads(make("cpu"), loss_fn, small)
+        spread = layer_max_rel(g2, g1)
+        rels = layer_max_rel({k: v.cpu() for k, v in g1.items()}, cpu_grads)
+        loss_rel = abs(loss1 - cpu_loss) / abs(cpu_loss)
+        bad = {n: r for n, r in rels.items() if not r <= max(2e-5, 2 * spread[n])}
+        worst = max(rels, key=rels.get)
+        out[key] = {"ms": ms, "ms_all": ms_all, "peak_gib": peak, "loss_rel": loss_rel,
+                    "worst_layer": worst, "worst_rel": rels[worst],
+                    "spread_max": max(spread.values()), "twice_loss_equal": loss1 == loss2}
+        log(f"{tag} grad {key} fp32 batch={B} {H}x{W}: {ms:.3f} ms per forward+backward "
+            f"(median of {n_timed}: {ms_all}) peak_mem={peak:.3f} GiB; batch 2 64x96 card vs "
+            f"CPU: loss rel={loss_rel!r} worst layer {worst} max_rel={rels[worst]!r}; card "
+            f"twice: loss equal={loss1 == loss2} worst spread={max(spread.values())!r} "
+            f"({max(spread, key=spread.get)})")
+        if not loss_rel <= 1e-5 or bad:
+            raise AssertionError(f"{tag} {key} gradients: loss rel {loss_rel!r}, layers past "
+                                 f"max(2e-5, 2x spread): {bad}")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # LiteFlowNet3 (plain PyTorch: no port kernel lies on its path)
 
 LFN3_VARIANTS = {
@@ -1450,41 +1555,30 @@ def _lfn3_serving(goldens, n_timed=5):
     for B in (16, 1):
         g = torch.Generator(device="cuda").manual_seed(B)
         frames[B] = torch.rand(B, 2, H, W, 3, device="cuda", generator=g)
-    out, fp32_flows = {}, {}
+    res, fp32_flows = {}, {}
     for variant, dt, B in runs:
         model = _lfn3(variant, _lfn3_state_dict(variant, goldens), dtype=dt)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        flows = model(frames[B])["flows"]
-        times = []
-        for _ in range(n_timed):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model(frames[B])
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        result, ms, ms_all, peak = _median_ms(lambda: model(frames[B]), n_timed)
+        flows = result["flows"]
         if tuple(flows.shape) != (B, 1, H, W, 2) or not torch.isfinite(flows).all():
             raise AssertionError(f"lfn3 {variant} serving: wrong shape or not finite")
-        ms = float(np.median(times))
         key = f"{variant}_{'fp32' if dt == torch.float32 else 'bf16'}_bs{B}"
-        row = {"ms": ms, "pairs_per_s": B * 1e3 / ms, "peak_gib": peak,
-               "ms_all": [round(t, 3) for t in times]}
+        row = {"ms": ms, "pairs_per_s": B * 1e3 / ms, "peak_gib": peak, "ms_all": ms_all}
         if dt == torch.float32:
             fp32_flows[(variant, B)] = flows
         elif (variant, B) in fp32_flows:
             epe = torch.linalg.norm(flows - fp32_flows.pop((variant, B)), dim=-1)
             row["epe_vs_fp32_mean"] = float(epe.mean())
             row["epe_vs_fp32_max"] = float(epe.max())
-        out[key] = row
+        res[key] = row
         log(f"lfn3 serving {key} {H}x{W}: {ms:.3f} ms/call (median of {n_timed}: "
             f"{row['ms_all']}) {row['pairs_per_s']:.3f} pairs/s peak_mem={peak:.3f} GiB "
             f"mean|flow|={float(flows.abs().mean())!r}"
             + (f" bf16-vs-fp32 EPE mean={row['epe_vs_fp32_mean']!r} max={row['epe_vs_fp32_max']!r}"
                if "epe_vs_fp32_mean" in row else ""))
-        del model, flows
+        del model, flows, result
         torch.cuda.empty_cache()
-    return out
+    return res
 
 
 def _lfn3_gradients(goldens, n_timed=3):
@@ -1560,6 +1654,181 @@ def phase_lfn3(state):
     res["seconds"] = time.perf_counter() - t0
     state["lfn3"] = res
     log(f"phase lfn3: ok in {res['seconds']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# SimpleFlowNet and IFNet (plain PyTorch: no port kernel lies on their paths)
+
+FAMILY_SERVE_HW = (432, 1024)  # tools/bench_families.py's SimpleFlowNet and IFNet rows
+
+
+def _golden_pair(name, keys):
+    """The golden's arrays and its two frames, NHWC on the card."""
+    g = np.load(os.path.join(REPO, "tests", "goldens", f"{name}.npz"))
+    return g, [torch.from_numpy(g[k]).permute(0, 2, 3, 1).contiguous().cuda() for k in keys]
+
+
+def _nchw_np(x):
+    return x.permute(0, 3, 1, 2).cpu().numpy()
+
+
+def _serve_rows(tag, runs, n_timed=5):
+    """runs: (key, make_model, B, H, W, flow_of, stride). Each model serves
+    seeded frames in [0, 1]: ms/call, pairs/s and peak memory; flow_of
+    picks the served flow, which must be finite and 1/stride the frame's
+    size."""
+    out = {}
+    for key, make, B, H, W, flow_of, stride in runs:
+        g = torch.Generator(device="cuda").manual_seed(B)
+        a, b = (torch.rand(B, H, W, 3, device="cuda", generator=g) for _ in range(2))
+        model = make()
+        res, ms, ms_all, peak = _median_ms(lambda: model(a, b), n_timed)
+        flow = flow_of(res)
+        if flow.shape[:3] != (B, H // stride, W // stride) or not torch.isfinite(flow).all():
+            raise AssertionError(f"{tag} serving {key}: wrong shape or not finite")
+        out[key] = {"ms": ms, "pairs_per_s": B * 1e3 / ms, "peak_gib": peak, "ms_all": ms_all}
+        log(f"{tag} serving {key} {H}x{W}: {ms:.3f} ms/call (median of {n_timed}: {ms_all}) "
+            f"{B * 1e3 / ms:.3f} pairs/s peak_mem={peak:.3f} GiB "
+            f"mean|flow|={float(flow.abs().mean())!r}")
+        del model, res, flow, a, b
+        torch.cuda.empty_cache()
+    return out
+
+
+def _card_vs_cpu(tag, key, make, flows_of):
+    """The card's fp32 flows against the port's on the CPU at the same
+    weights, 64x96, batch 2: within 1e-4, the bar the port holds against
+    JAX."""
+    rng = np.random.RandomState(0)
+    a, b = (torch.from_numpy(rng.uniform(0, 1, (2, 64, 96, 3)).astype(np.float32))
+            for _ in range(2))
+    ref = flows_of(make("cpu")(a, b))
+    got = flows_of(make("cuda")(a.cuda(), b.cuda()))
+    d = max(float((f.cpu() - r).abs().max()) for f, r in zip(got, ref))
+    log(f"{tag} {key} fp32 card vs CPU: flows max|d|={d!r} (tol 1e-4) "
+        f"mean|flow|={float(ref[-1].abs().mean())!r}")
+    if not d <= 1e-4:
+        raise AssertionError(f"{tag} {key}: the card disagrees with the CPU")
+    return d
+
+
+def phase_simple_flow(state):
+    from raft_optical_flow_tpu_torch.losses import simple_flow_loss
+    from raft_optical_flow_tpu_torch.models import SimpleFlowConfig, SimpleFlowNet
+    from raft_optical_flow_tpu_torch.utils.weights import load_flax_npz
+
+    t0 = time.perf_counter()
+    sd = load_flax_npz(os.path.join(REPO, "tests", "goldens", "simple_flow_params.npz"))
+
+    def make(device="cuda", dtype=torch.float32):
+        model = SimpleFlowNet(SimpleFlowConfig(compute_dtype=dtype), device=device)
+        model.load_state_dict(sd)
+        return model
+
+    reset_all()
+    res = {"fidelity": {}}
+    g, images = _golden_pair("simple_flow", ("img1", "img2"))
+    for dt, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        flows = make(dtype=dt)(*images)
+        d = [np.abs(_nchw_np(f) - g[f"flow_{i}"]) for i, f in enumerate(flows)]
+        means, maxes = [float(x.mean()) for x in d], [float(x.max()) for x in d]
+        res["fidelity"][name] = {"mean": means, "max": maxes}
+        log(f"simple_flow {name} vs golden, per scale (1/8, 1/4, 1/2): mean|d|={means!r} "
+            f"max|d|={maxes!r} " + ("(atol 1e-3)" if name == "fp32" else "(< 4e-2, < 2e-1)"))
+        ok = (max(maxes) <= 1e-3 if name == "fp32"
+              else max(means) < 4e-2 and max(maxes) < 2e-1)
+        if not ok or any(f.dtype != torch.float32 for f in flows):
+            raise AssertionError(f"simple_flow {name}: does not match the golden")
+    res["card_vs_cpu"] = _card_vs_cpu("simple_flow", "eval", make, lambda flows: flows)
+
+    H, W = FAMILY_SERVE_HW
+    # the served flow is the finest, at half the frame's size
+    runs = [(f"{name}_bs{B}", functools.partial(make, dtype=dt), B, H, W, lambda f: f[-1], 2)
+            for dt, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")) for B in (16, 1)]
+    runs += [(f"{name}_bs1_256x256", functools.partial(make, dtype=dt), 1, 256, 256,
+              lambda f: f[-1], 2) for dt, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16"))]
+    res["serving"] = _serve_rows("simple_flow", runs)
+
+    def supervised(model, img1, img2, gt, valid):
+        return simple_flow_loss(model(img1, img2, train=True), gt, valid, img1)[0]
+
+    res["gradients"] = _gradient_rows("simple_flow", [("supervised_bn_train", make, supervised)])
+    expect_launches(launch_counts(), {}, "simple_flow (no port kernel on its path)")
+    res["seconds"] = time.perf_counter() - t0
+    state["simple_flow"] = res
+    log(f"phase simple_flow: ok in {res['seconds']:.1f} s")
+
+
+def phase_ifnet(state):
+    from raft_optical_flow_tpu_torch.losses import laploss, simple_flow_loss
+    from raft_optical_flow_tpu_torch.models import IFNet
+    from raft_optical_flow_tpu_torch.utils.weights import load_flax_npz
+
+    t0 = time.perf_counter()
+    sd = load_flax_npz(os.path.join(REPO, "tests", "goldens", "ifnet_params.npz"))
+
+    def make(device="cuda", dtype=torch.float32, frw=False):
+        model = IFNet(compute_dtype=dtype, feature_res_warp=frw, device=device)
+        model.load_state_dict(sd)
+        return model
+
+    reset_all()
+    res = {}
+    g, images = _golden_pair("ifnet", ("img0", "img1"))
+    flows, masks, warped = make()(*images)
+    d_flow = max(float(np.abs(_nchw_np(f) - g[f"flow_{i}"]).max()) for i, f in enumerate(flows))
+    d_mask = max(float(np.abs(_nchw_np(m) - g[f"mask_{i}"]).max()) for i, m in enumerate(masks))
+    d_warp = max(float(np.abs(_nchw_np(w[j]) - g[f"warped{j}_{i}"]).max())
+                 for i, w in enumerate(warped) for j in range(2))
+    log(f"ifnet fp32 vs golden: flows max|d|={d_flow!r} (atol 2e-3) masks max|d|={d_mask!r} "
+        f"(1e-3) warped max|d|={d_warp!r} (1e-3)")
+    if not (d_flow <= 2e-3 and d_mask <= 1e-3 and d_warp <= 1e-3):
+        raise AssertionError("ifnet fp32: does not match the golden")
+    bf_flows, bf_masks, _ = make(dtype=torch.bfloat16)(*images)
+    diff = np.abs(_nchw_np(bf_flows[-1]) - g["flow_2"])
+    log(f"ifnet bf16 vs fp32 golden: flow_2 dtype={bf_flows[-1].dtype} mean|d|="
+        f"{float(diff.mean())!r} (< 5e-3) max|d|={float(diff.max())!r} (< 5e-2)")
+    if not (bf_flows[-1].dtype == bf_masks[-1].dtype == torch.float32 and diff.mean() < 5e-3
+            and diff.max() < 5e-2):
+        raise AssertionError("ifnet bf16 is not close to the fp32 golden")
+    frw = make(frw=True)(*images)[0]
+    if not torch.equal(frw[0], flows[0]):
+        raise AssertionError("ifnet feature_res_warp: flow_0 differs from the reference order")
+    frw_d = [(float((frw[i] - flows[i]).abs().mean()), float((frw[i] - flows[i]).abs().max()))
+             for i in (1, 2)]
+    log(f"ifnet feature_res_warp vs reference order: flow_0 equal; flow_1, flow_2 "
+        f"(mean|d|, max|d|)={frw_d!r} (< 0.06, < 0.5)")
+    if not all(m < 0.06 and x < 0.5 for m, x in frw_d):
+        raise AssertionError("ifnet feature_res_warp is not close to the reference order")
+    res["fidelity"] = {"fp32": {"flows": d_flow, "masks": d_mask, "warped": d_warp},
+                       "bf16_flow_2": {"mean": float(diff.mean()), "max": float(diff.max())},
+                       "frw": frw_d}
+    res["card_vs_cpu"] = {
+        key: _card_vs_cpu("ifnet", key, functools.partial(make, frw=frw_on), lambda out: out[0])
+        for key, frw_on in (("reference_order", False), ("feature_res_warp", True))}
+
+    H, W = FAMILY_SERVE_HW
+    runs = [(f"{name}_bs{B}", functools.partial(make, dtype=dt, frw=frw_on), B, H, W,
+             lambda out: out[0][-1], 1)
+            for dt, frw_on, name in ((torch.float32, False, "fp32"), (torch.bfloat16, False, "bf16"),
+                                     (torch.bfloat16, True, "bf16_frw"))
+            for B in (16, 1)]
+    res["serving"] = _serve_rows("ifnet", runs)
+
+    def supervised(model, img1, img2, gt, valid):
+        flows, _, _ = model(img1, img2, train=True)
+        return simple_flow_loss([f[..., 2:4] for f in flows], gt, valid, img1)[0]
+
+    def unsupervised(model, img1, img2, gt, valid):
+        _, _, warped = model(img1, img2, train=True)
+        return laploss(warped, img1, img2)[0]
+
+    res["gradients"] = _gradient_rows("ifnet", [("supervised", make, supervised),
+                                                ("unsupervised_laploss", make, unsupervised)])
+    expect_launches(launch_counts(), {}, "ifnet (no port kernel on its path)")
+    res["seconds"] = time.perf_counter() - t0
+    state["ifnet"] = res
+    log(f"phase ifnet: ok in {res['seconds']:.1f} s")
 
 
 def _bytes_needed(levels, coords_flat, radius, out_itemsize):

@@ -29,6 +29,16 @@ from torch import nn
 IntPair = Union[int, Sequence[int]]
 
 
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NHWC view of an NCHW tensor (the ops' public layout)."""
+    return x.permute(0, 2, 3, 1)
+
+
+def nchw(x: torch.Tensor) -> torch.Tensor:
+    """NCHW view of an NHWC tensor (the modules' inner layout)."""
+    return x.permute(0, 3, 1, 2)
+
+
 def fp32_policy() -> None:
     """Turn TF32 off for matmuls and convs: the fp32 policy is full fp32."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -96,6 +106,20 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.1) -> torch.Tensor:
     """`jax.nn.leaky_relu`: the slope is a weakly typed constant there, so it
     is rounded to x's dtype first (0.1 is 0.10009765625 in bf16)."""
     return F.leaky_relu(x, _rounded(negative_slope, x.dtype))
+
+
+class PReLU(nn.Module):
+    """Per-channel PReLU of NCHW x, `where(x >= 0, x, a * x)` with the slope
+    `weight` [C] (init 0.25) cast to x's dtype: the JAX package's IFNet
+    PReLU (`models/ifnet.py`, param `scale`). Not `F.prelu`: its gradient
+    at x = 0 is the slope, JAX's is 1."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((channels,), 0.25))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.weight.to(x.dtype)[:, None, None] * x)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

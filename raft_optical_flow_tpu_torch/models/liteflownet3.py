@@ -38,6 +38,8 @@ from raft_optical_flow_tpu_torch.models.layers import (
     fp32_policy,
     init_weights,
     leaky_relu,
+    nchw,
+    nhwc,
 )
 from raft_optical_flow_tpu_torch.ops.grid import resize_bilinear
 from raft_optical_flow_tpu_torch.ops.padding import InputScaler
@@ -65,23 +67,15 @@ class LFN3Config:
         return self.div_flow / 2 ** (NUM_LEVELS - level + 1)
 
 
-def _nhwc(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 2, 3, 1)
-
-
-def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2)
-
-
 def _warp(x: torch.Tensor, flow: torch.Tensor, div_flow: float) -> torch.Tensor:
     """`warp_lfn3` of NCHW x by NCHW flow."""
-    return _nchw(warp_lfn3(_nhwc(x), _nhwc(flow), div_flow))
+    return nchw(warp_lfn3(nhwc(x), nhwc(flow), div_flow))
 
 
 def _corr(f1: torch.Tensor, f2: torch.Tensor, patch: int, dilation: int = 1) -> torch.Tensor:
     """leaky_relu of the NCHW correlation, divided by the channel count."""
-    c = spatial_correlation_sample(_nhwc(f1), _nhwc(f2), patch, dilation)
-    return _nchw(leaky_relu(c)) / f1.shape[1]
+    c = spatial_correlation_sample(nhwc(f1), nhwc(f2), patch, dilation)
+    return nchw(leaky_relu(c)) / f1.shape[1]
 
 
 def _unfold_neighbors(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -349,9 +343,9 @@ class LiteFlowNet3(nn.Module):
         scaler = InputScaler(images.shape, stride=cfg.output_stride)
         # frame 1 of every sample, then frame 2 of every sample
         x = scaler.fill(x.transpose(0, 1).reshape(2 * B, H, W, 3))
-        x = _nchw(x).contiguous()
+        x = nchw(x).contiguous()
         feats = [(f[:B], f[B:]) for f in self.feature_net(x)]
-        images_pyr = [_nchw(resize_bilinear(_nhwc(x), f1.shape[2:])).split(B)
+        images_pyr = [nchw(resize_bilinear(nhwc(x), f1.shape[2:])).split(B)
                       for f1, _ in feats]
 
         flow_preds, conf_preds = [], []
@@ -379,13 +373,13 @@ class LiteFlowNet3(nn.Module):
             flow = self.pseudo_subpixel(sub_feat, flow)
             flow = self.pseudo_regularization(reg_feat, flow)
         flow = self.up_flow(flow) * cfg.div_flow
-        flow = scaler.unfill(_nhwc(flow), is_flow=True)
-        conf_last = _nhwc(conf_preds[-1])
+        flow = scaler.unfill(nhwc(flow), is_flow=True)
+        conf_last = nhwc(conf_preds[-1])
         conf_full = resize_bilinear(conf_last, (conf_last.shape[1] * 4, conf_last.shape[2] * 4))
         out = {"flows": flow[:, None], "confs": scaler.unfill(conf_full)[:, None]}
         if training:
-            out["flow_preds"] = [_nhwc(f) for f in flow_preds]
-            out["conf_preds"] = [_nhwc(c) for c in conf_preds]
+            out["flow_preds"] = [nhwc(f) for f in flow_preds]
+            out["conf_preds"] = [nhwc(c) for c in conf_preds]
         return out
 
 

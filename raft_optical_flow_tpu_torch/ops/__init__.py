@@ -1,4 +1,5 @@
-"""Tensor ops of the RAFT and LiteFlowNet3 paths, NHWC at their public surface."""
+"""Tensor ops of the RAFT, LiteFlowNet3, SimpleFlowNet and IFNet paths, NHWC at
+their public surface."""
 
 from raft_optical_flow_tpu_torch.ops.corr import (
     avg_pool2x2,
@@ -17,7 +18,7 @@ from raft_optical_flow_tpu_torch.ops.grid import (
 from raft_optical_flow_tpu_torch.ops.padding import InputPadder, InputScaler
 from raft_optical_flow_tpu_torch.ops.spatial_corr import spatial_correlation_sample
 from raft_optical_flow_tpu_torch.ops.upsample import convex_upsample
-from raft_optical_flow_tpu_torch.ops.warp import warp_lfn3
+from raft_optical_flow_tpu_torch.ops.warp import backward_warp, flow_to_warp, warp_lfn3
 
 __all__ = [
     "avg_pool2x2",
@@ -34,5 +35,7 @@ __all__ = [
     "InputScaler",
     "spatial_correlation_sample",
     "convex_upsample",
+    "backward_warp",
+    "flow_to_warp",
     "warp_lfn3",
 ]

@@ -3,7 +3,8 @@
 Counterpart of `raft_optical_flow_tpu/ops/grid.py` (`coords_grid`,
 `bilinear_sampler`, `resize_bilinear_align_corners`, `resize_bilinear`,
 `upflow8`), plus `resize_nearest`, the nearest resize of
-`jax.image.resize`. NHWC in and out. A tensor given as an NHWC view of a
+`jax.image.resize`, and `abs_jax` and `clip_jax`, `jnp.abs` and `jnp.clip`
+with JAX's gradients where torch's differ. NHWC in and out. A tensor given as an NHWC view of a
 contiguous NCHW tensor (`x.permute(0, 2, 3, 1)`) goes through
 `bilinear_sampler` and `resize_bilinear` without a copy, and what they
 return is such a view again: the models call them from NCHW code.
@@ -26,11 +27,13 @@ def coords_grid(batch: int, ht: int, wd: int, device="cuda",
     return torch.stack([x, y], dim=-1)[None].expand(batch, ht, wd, 2)
 
 
-def _bilinear_taps(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def _bilinear_taps(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                   padding: str) -> torch.Tensor:
     """Bilinear samples of NCHW img at pixel positions x, y [N, Q]: [N, C, Q].
 
-    Four gathers at the floor's corners, each tap outside the image zero.
-    The JAX package's form for images under 2 pixels high or wide.
+    Four gathers at the floor's corners, each at its index clamped into the
+    image; under "zeros" padding a tap outside the image is zero. The JAX
+    package's form for images under 2 pixels high or wide.
     """
     N, C, H, W = img.shape
     x0 = torch.floor(x)
@@ -44,6 +47,8 @@ def _bilinear_taps(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch
     def tap(xi, yi):
         idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
         v = torch.gather(flat, 2, idx[:, None].expand(N, C, idx.shape[1]))
+        if padding == "border":
+            return v
         inb = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
         return torch.where(inb[:, None], v, torch.zeros((), dtype=img.dtype, device=img.device))
 
@@ -51,14 +56,29 @@ def _bilinear_taps(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch
             + tap(x0i, y0i + 1) * wy * (1 - wx) + tap(x0i + 1, y0i + 1) * wy * wx)
 
 
-def bilinear_sampler(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """Bilinear samples of img [N, H, W, C] at pixel coords [N, *S, 2] (x, y),
-    torch `grid_sample(align_corners=True, padding_mode="zeros")` semantics:
-    (0, 0) is the centre of the top-left pixel, taps outside the image
-    contribute zero. Returns [N, *S, C].
+def abs_jax(x: torch.Tensor) -> torch.Tensor:
+    """|x| with `jnp.abs`'s gradient, +1 at 0 (`torch.abs`'s is 0)."""
+    return torch.where(x >= 0, x, -x)
 
-    The JAX package's sampler in its 'zeros' mode (its 'border' mode and
-    in-bounds mask have no caller on the port's paths yet). The taps and
+
+def clip_jax(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """`jnp.clip(x, lo, hi)`: the same values as `torch.clamp`, and JAX's
+    gradient at a bound, 0.5 (`torch.clamp`'s is 1). `torch.maximum` and
+    `torch.minimum` split the gradient at a tie as `jnp.maximum` does."""
+    x = torch.maximum(x, x.new_tensor(lo))
+    return torch.minimum(x, x.new_tensor(hi))
+
+
+def bilinear_sampler(img: torch.Tensor, coords: torch.Tensor,
+                     padding: str = "zeros") -> torch.Tensor:
+    """Bilinear samples of img [N, H, W, C] at pixel coords [N, *S, 2] (x, y),
+    torch `grid_sample(align_corners=True)` semantics: (0, 0) is the centre
+    of the top-left pixel. Returns [N, *S, C]. `padding` "zeros": taps
+    outside the image contribute zero; "border": x is clipped to [0, W-1]
+    and y to [0, H-1] first (`clip_jax`, JAX's gradient at the bounds).
+
+    The JAX package's sampler (its in-bounds mask has no caller in either
+    package and is not ported). The taps and
     weights are JAX's, in pixel coordinates: the 2x2 patch at the root
     clip(floor(p), 0, size-2), each tap weighted by the hat
     max(1 - |p - tap|, 0), which is zero for a tap the position is a pixel
@@ -68,20 +88,24 @@ def bilinear_sampler(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     choices. Four gathers, no normalisation to [-1, 1]: a one-ulp position
     error of that normalisation is 6e-5 px at W = 1024.
     """
+    if padding not in ("zeros", "border"):
+        raise ValueError(f"unknown padding mode {padding!r}")
     N, H, W, C = img.shape
     S = coords.shape[1:-1]
     x = coords[..., 0].reshape(N, -1)
     y = coords[..., 1].reshape(N, -1)
+    if padding == "border":
+        x = clip_jax(x, 0.0, W - 1.0)
+        y = clip_jax(y, 0.0, H - 1.0)
     nchw = img.permute(0, 3, 1, 2)
     if H < 2 or W < 2:
-        out = _bilinear_taps(nchw, x, y)
+        out = _bilinear_taps(nchw, x, y, padding)
     else:
         x0 = torch.clamp(torch.floor(x), 0.0, W - 2.0)
         y0 = torch.clamp(torch.floor(y), 0.0, H - 2.0)
 
         def hat(p, t):
-            d = p - t
-            d = torch.where(d >= 0, d, -d)  # |d|, with jnp.abs's gradient +1 at 0
+            d = abs_jax(p - t)
             return torch.maximum(1.0 - d, d.new_zeros(())).to(img.dtype)[:, None]
 
         wy0, wy1 = hat(y, y0), hat(y, y0 + 1.0)

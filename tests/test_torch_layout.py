@@ -16,7 +16,14 @@ import pytest
 
 from raft_optical_flow_tpu_torch.cli import train_raft
 from raft_optical_flow_tpu_torch.data.pipeline import prefetch_to_device
-from raft_optical_flow_tpu_torch.models import RAFT, LiteFlowNet3
+from raft_optical_flow_tpu_torch.models import (
+    RAFT,
+    IFNet,
+    LiteFlowNet3,
+    SimpleFlowNet,
+    ifnet,
+    simple_flow_net,
+)
 from raft_optical_flow_tpu_torch.ops.grid import coords_grid
 from raft_optical_flow_tpu_torch.train.trainer import RAFTTrainer, create_train_state
 
@@ -50,7 +57,9 @@ def test_sources_found():
     for rel in (("kernels", "corr_lookup.py"), ("train", "trainer.py"), ("cli", "train_raft.py"),
                 ("losses", "sequence.py"), ("utils", "checkpoint.py"), ("data", "pipeline.py"),
                 ("data", "synthetic.py"), ("train", "configs.py"), ("models", "liteflownet3.py"),
-                ("ops", "warp.py"), ("ops", "spatial_corr.py")):
+                ("ops", "warp.py"), ("ops", "spatial_corr.py"), ("models", "simple_flow.py"),
+                ("models", "ifnet.py"), ("losses", "laploss.py"), ("losses", "unsupervised.py"),
+                ("losses", "simple_flow_loss.py")):
         assert os.path.join(PORT, *rel) in srcs
 
 
@@ -83,6 +92,8 @@ def test_kernel_source_is_cuda_for_sm90a():
 def test_entry_points_default_to_cuda():
     assert inspect.signature(RAFT.__init__).parameters["device"].default == "cuda"
     assert inspect.signature(LiteFlowNet3.__init__).parameters["device"].default == "cuda"
+    for fn in (SimpleFlowNet.__init__, IFNet.__init__, simple_flow_net, ifnet):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert inspect.signature(coords_grid).parameters["device"].default == "cuda"
 
 

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Profile one RAFT-standard forward or training step of the PyTorch port on the GPU.
+"""Profile one forward or training step of the PyTorch port on the GPU: RAFT-standard,
+SimpleFlowNet or IFNet.
 
     python3 tools/profile_port_raft.py [--batch 16] [--iters 32] [--dtype bf16]
     python3 tools/profile_port_raft.py --mode train [--batch 4] [--iters 12]
     python3 tools/profile_port_raft.py [--mode train] --alternate_corr [--remat]
     python3 tools/profile_port_raft.py --fused_gru [--alternate_corr]
+    python3 tools/profile_port_raft.py --model simple_flow|ifnet [--mode train] [--dtype fp32]
 
 `--mode serve` (default): the serving workload of `bench.py::main` (1024x436
 frames padded to 1024x440, test mode). `--mode train`: one training step of
@@ -13,7 +15,11 @@ sequence loss, backward, clipped AdamW). `--alternate_corr` runs the
 on-demand correlation (K4 forward, K5 and K6 backward) instead of the
 materialized volume; `--remat` recomputes each GRU iteration in the
 backward; `--fused_gru` runs the SepConvGRU through K7 (serving, or fp32
-training). Seeded random weights and data. The
+training). `--model simple_flow` or `ifnet`: serving at 432x1024
+(`tools/bench_families.py`), batch 16 by default; training, the supervised
+loss of the JAX trainers (`simple_flow_loss`; IFNet's flow[..., 2:4]) and
+its backward at batch 8, 384x768 (`cli/train_flow.py`), no optimizer step.
+Seeded random weights and data. The
 call runs twice to warm up, then once under `torch.profiler`. Prints the
 device time by kernel (the 20 largest, then each of the port's), the time
 per group (the port's CUDA kernels, convolutions, matmuls, the rest), and
@@ -41,7 +47,10 @@ GROUPS = (
                                               r"wide_lookup_kernel|"
                                               r"lookup_level_bwd_kernel|ondemand_|"
                                               r"gru_pass_|gru_weight_image")),
-    ("convolution", re.compile(r"conv|fprop|implicit|dgrad|cudnn|xmma", re.I)),
+    # cuDNN's FFT algorithms (fp32 without TF32 picks them for some shapes)
+    # run as fft, region_transform and complex-product kernels
+    ("convolution", re.compile(r"conv|fprop|implicit|dgrad|wgrad|cudnn|xmma|fft|"
+                               r"region_transform|mult_and_sum_complex", re.I)),
     ("matmul", re.compile(r"gemm|cutlass|cublas", re.I)),
 )
 
@@ -75,10 +84,40 @@ def _train_call(config, batch, iters):
     return lambda: raft_train_step(state, data, iters=iters, freeze_bn=True)
 
 
+def _family_call(name, dtype, train, batch):
+    from raft_optical_flow_tpu_torch.losses import simple_flow_loss
+    from raft_optical_flow_tpu_torch.models import IFNet, SimpleFlowConfig, SimpleFlowNet
+
+    gen = torch.Generator().manual_seed(0)
+    if name == "simple_flow":
+        model = SimpleFlowNet(SimpleFlowConfig(compute_dtype=dtype), device="cuda", generator=gen)
+    else:
+        model = IFNet(compute_dtype=dtype, device="cuda", generator=gen)
+    H, W = (384, 768) if train else (432, 1024)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    img1, img2 = (torch.rand(batch, H, W, 3, device="cuda", generator=g) for _ in range(2))
+    if not train:
+        return lambda: model(img1, img2)
+    gt = torch.rand(batch, H, W, 2, device="cuda", generator=g) * 10.0 - 5.0
+    valid = torch.ones(batch, H, W, device="cuda")
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        if name == "simple_flow":
+            preds = model(img1, img2, train=True)
+        else:
+            preds = [f[..., 2:4] for f in model(img1, img2, train=True)[0]]
+        simple_flow_loss(preds, gt, valid, img1)[0].backward()
+
+    return step
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("raft", "simple_flow", "ifnet"), default="raft")
     ap.add_argument("--mode", choices=("serve", "train"), default="serve")
-    ap.add_argument("--batch", type=int, default=None, help="default 16 serving, 4 training")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default 16 serving, 4 training (SimpleFlowNet and IFNet: 8)")
     ap.add_argument("--iters", type=int, default=None, help="default 32 serving, 12 training")
     ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
     ap.add_argument("--alternate_corr", action="store_true", help="on-demand correlation")
@@ -94,11 +133,14 @@ def main() -> int:
 
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     train = args.mode == "train"
-    batch = args.batch or (4 if train else 16)
+    batch = args.batch or ((8 if args.model != "raft" else 4) if train else 16)
     iters = args.iters or (12 if train else 32)
-    config = RAFTConfig(compute_dtype=dtype, alternate_corr=args.alternate_corr, remat=args.remat,
-                        fused_gru=args.fused_gru)
-    run = (_train_call if train else _serve_call)(config, batch, iters)
+    if args.model == "raft":
+        config = RAFTConfig(compute_dtype=dtype, alternate_corr=args.alternate_corr,
+                            remat=args.remat, fused_gru=args.fused_gru)
+        run = (_train_call if train else _serve_call)(config, batch, iters)
+    else:
+        run = _family_call(args.model, dtype, train, batch)
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -121,7 +163,8 @@ def main() -> int:
     device_ms = sum(k[0] for k in kernels)
     if device_ms == 0:
         raise RuntimeError("the profiler recorded no device time")
-    print(f"{torch.cuda.get_device_name(0)} mode={args.mode} batch={batch} iters={iters} "
+    print(f"{torch.cuda.get_device_name(0)} model={args.model} mode={args.mode} batch={batch} "
+          f"iters={iters} "
           f"dtype={args.dtype} alternate_corr={args.alternate_corr} remat={args.remat} "
           f"fused_gru={args.fused_gru}: wall {wall_ms:.3f} ms (profiled), "
           f"device {device_ms:.3f} ms, busy share {device_ms / wall_ms:.4f}")
