@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`raft_optical_flow_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py [--phases device,kernels,small,standard,train,ondemand,fused_gru,lfn3,
-                                    simple_flow,ifnet,timing]
+                                    simple_flow,ifnet,flow_train,timing]
 
 Phases (each prints one line when it ends; any failure raises and the exit
 code is not 0):
@@ -16,8 +16,10 @@ code is not 0):
             and bf16 volumes, outputs and cotangents, far out-of-bounds coords
             and a crop whose deepest level is empty; and at the training
             shapes (368x496: levels 46x62 .. 5x7, radius 4), batch 4 bf16
-            and batch 10 fp32; K1, K2 and K8 (corr_lookup_all_levels, every
-            level in one launch) bit for bit with their plain versions, also
+            and batch 10 fp32, and the UFlow step's (RAFT-small, batch 4,
+            256x384 and its 240x368 student crop: levels 32x48 .. 4x6 and
+            30x46 .. 3x5, radius 3, fp32 volume); K1, K2 and K8
+            (corr_lookup_all_levels, every level in one launch) bit for bit with their plain versions, also
             on centres just below integers; then K8's public entry driven
             once (no model path launches it);
   small     RAFT-small, fp32 with TF32 off, checkpoint weights, against the
@@ -73,10 +75,12 @@ code is not 0):
             bf16 at batch 1, the median ms/call of 5 after a warm-up,
             pairs/s, peak memory and bf16-vs-fp32 EPE; training, standard and
             S+PseudoReg fp32: ms per forward+backward and peak memory at
-            batch 8, 384x768 (cli/train_flow.py), and at batch 2, 64x96 the
-            card's loss (rel 1e-5) and each layer's gradient against the
-            CPU, within max(2e-5, 2x the spread of the card's step run
-            twice);
+            batch 8, 384x768 (cli/train_flow.py), and at batch 2, 64x96, on
+            two draws of the inputs, the card's loss (rel 1e-5) and each
+            layer's gradient against the CPU and against the CPU in float64,
+            within max(2e-5, 2x the spread of the card's step run twice, 2x
+            the CPU fp32 error against float64), with the card's error
+            under cudnn.deterministic and the cuDNN conv kernels reported;
   simple_flow  SimpleFlowNet, plain PyTorch (no port kernel on its path; none
             may launch), fp32 with TF32 off unless bf16 is named: at the
             golden's params against the reference golden (atol 1e-3 per
@@ -97,6 +101,29 @@ code is not 0):
             bf16 and bf16 with feature_res_warp at batch 16 and 1; gradient
             steps supervised (flow[..., 2:4] through simple_flow_loss) and
             unsupervised (laploss);
+  flow_train  the family trainers and RAFT-small's UFlow step
+            (`train/trainers.py::FlowTrainer.train_step`, fp32): each of the
+            seven kinds (lfn3, lfn3_unsup, simple_flow, simple_flow_unsup,
+            ifnet, ifnet_unsup at batch 8, 384x768; raft_uflow_unsup at batch
+            4, 256x384, 4 iterations, checkpoints/raft_small.npz) for a
+            warm-up and 3 timed steps, at the goldens' params: the median
+            ms/step, peak memory, finite metrics, grad_norm > 0, and per step
+            64 launches each of K1 and K3 for UFlow, none for the families;
+            the full-width UFlow step through K1 and K3 against the same
+            step through the plain lookup, same weights, real frames,
+            deterministic algorithms on (loss bit for bit, each layer
+            within max(2e-5, 2x the kernel step's spread, 2x the plain
+            step's backward rounding floor)); each kind at batch 2 on the
+            card against the port on the CPU (loss rel 1e-5, each layer
+            within max(2e-5, 2x the card's spread); UFlow at 48x64, 24
+            launches each, its gate also 2x the CPU step's floor under a
+            one-ulp change of the weights, the card's error against the
+            port in float64 on the CPU within it, and that error, the
+            CPU's and the card's under cudnn.deterministic reported);
+            UFlow's range map
+            and UnFlow's splat twice bit for bit and within 1e-5 of the CPU;
+            `cli/train_flow.py` for two synthetic steps, its weights file
+            reloaded;
   timing    K1, K2, K4, K7 and K8 at the batch-16 serving shapes, K3, K5 and K6 at
             the batch-4 training shapes, each first held against its plain
             version on the inputs it is timed on: kernel, plain version, a
@@ -148,7 +175,7 @@ import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "kernels", "small", "standard", "train", "ondemand", "fused_gru", "lfn3",
-          "simple_flow", "ifnet", "timing")
+          "simple_flow", "ifnet", "flow_train", "timing")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16, dense tensor cores
@@ -387,6 +414,15 @@ def phase_kernels(state):
         compare(pyr, serving_coords(B, th, tw, seed=60 + B), 4, f"train B={B} {vol_dtype}")
         del pyr
         torch.cuda.empty_cache()
+    # the shapes of phase flow_train's UFlow step (RAFT-small, batch 4,
+    # 256x384 and its 240x368 student crop: levels 32x48 .. 4x6 and 30x46 ..
+    # 3x5, 128-channel fmaps, fp32 volume, radius 3)
+    for crop in (0, UFLOW_KW["selfsup_crop"]):
+        uh, uw = (UFLOW_HW[0] - 2 * crop) // 8, (UFLOW_HW[1] - 2 * crop) // 8
+        pyr = serving_pyramid(UFLOW_B, uh, uw, torch.float32, seed=70 + crop, C=128)
+        compare(pyr, serving_coords(UFLOW_B, uh, uw, seed=80 + crop), 3,
+                f"uflow B={UFLOW_B} {uh}x{uw}")
+        del pyr
     # a 56x128 crop: levels 7x16, 3x8, 1x4, 0x2 (the deepest is empty)
     for vol_dtype in (torch.float32, torch.bfloat16):
         pyr = serving_pyramid(2, 7, 16, vol_dtype, seed=9)
@@ -599,20 +635,23 @@ def _small_step(cfg, stage, ckpt, batch, iters, expect):
 
 
 def layer_max_rel(grads, ref_grads):
-    """max|d| / max|ref| for each layer (its weight and bias together):
-    each layer on its own scale, so fnet, the only part the lookup's
-    gradient reaches, is not measured against the update block's larger
-    gradient. A conv bias in front of an instance norm has a zero gradient
-    up to rounding; its layer's weight gradient gives it its scale. A layer
-    whose gradient is zero (one the step does not reach) reads 0.0 when the
-    other's is zero too, else inf."""
-    diff, ref = {}, {}
-    for k, v in ref_grads.items():
-        layer = k.rsplit(".", 1)[0]
-        diff[layer] = max(diff.get(layer, 0.0), float((grads[k] - v).abs().max()))
-        ref[layer] = max(ref.get(layer, 0.0), float(v.abs().max()))
-    return {n: diff[n] / ref[n] if ref[n] else (0.0 if diff[n] == 0 else math.inf)
-            for n in ref}
+    """max|d| / max|ref| for each layer (its weight and bias together,
+    `utils/grad_check.py`): each layer on its own scale, so fnet, the only
+    part the lookup's gradient reaches, is not measured against the update
+    block's larger gradient. A conv bias in front of an instance norm has a
+    zero gradient up to rounding; its layer's weight gradient gives it its
+    scale."""
+    from raft_optical_flow_tpu_torch.utils import grad_check
+
+    return grad_check.layer_max_rel(grads, ref_grads)
+
+
+def gradient_gate(spread, floor=None):
+    """Each layer's bound, max(2e-5, 2x the card's spread, 2x a measured
+    floor where one is given) (`utils/grad_check.py`)."""
+    from raft_optical_flow_tpu_torch.utils import grad_check
+
+    return grad_check.gradient_gate(spread, floor)
 
 
 def phase_train(state):
@@ -1414,7 +1453,8 @@ def _gradient_rows(tag, cases, n_timed=3):
         spread = layer_max_rel(g2, g1)
         rels = layer_max_rel({k: v.cpu() for k, v in g1.items()}, cpu_grads)
         loss_rel = abs(loss1 - cpu_loss) / abs(cpu_loss)
-        bad = {n: r for n, r in rels.items() if not r <= max(2e-5, 2 * spread[n])}
+        gate = gradient_gate(spread)
+        bad = {n: r for n, r in rels.items() if not r <= gate[n]}
         worst = max(rels, key=rels.get)
         out[key] = {"ms": ms, "ms_all": ms_all, "peak_gib": peak, "loss_rel": loss_rel,
                     "worst_layer": worst, "worst_rel": rels[worst],
@@ -1469,19 +1509,13 @@ def _lfn3(variant, sd, device="cuda", dtype=torch.float32):
     return model
 
 
-def _lfn3_loss(model, images, gt, valid):
-    """The JAX trainer's convention (`train/trainers.py:83-86`): the full-size
-    flow, then the levels finest first, times div_flow."""
-    from raft_optical_flow_tpu_torch.losses import multiscale_sequence_loss
-
-    out = model(images, training=True)
-    preds = [out["flows"][:, 0]] + [p * model.config.div_flow for p in reversed(out["flow_preds"])]
-    return multiscale_sequence_loss(preds, gt, valid)
-
-
 def _lfn3_grads(model, images, gt, valid):
+    """`lfn3_train_step`'s loss (`train/trainers.py::lfn3_supervised_loss`)
+    and its gradients, no optimizer step: (loss, {name: grad})."""
+    from raft_optical_flow_tpu_torch.train.trainers import lfn3_supervised_loss
+
     model.zero_grad(set_to_none=True)
-    loss = _lfn3_loss(model, images, gt, valid)
+    loss = lfn3_supervised_loss(model, images, gt, valid)[0]
     loss.backward()
     return float(loss.detach()), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
 
@@ -1581,13 +1615,59 @@ def _lfn3_serving(goldens, n_timed=5):
     return res
 
 
+def _lfn3_draws():
+    """The two batch-2 64x96 draws of phase lfn3's card-against-CPU gradient
+    gate, each (images, gt, valid) from RandomState(0): "joint" draws both
+    frames as one [2, 2, 64, 96, 3] array (the phase's first draw), "separate" as
+    two [2, 64, 96, 3] arrays stacked after (the draw on which the gate of
+    max(2e-5, 2x the card's spread) read 2.44e-5 at S+PseudoReg's
+    `regularization_nets_0.conf_pred_0`)."""
+    out = {}
+    for name in ("joint", "separate"):
+        rng = np.random.RandomState(0)
+        if name == "joint":
+            images = rng.uniform(0, 1, (2, 2, 64, 96, 3)).astype(np.float32)
+        else:
+            images = np.stack([rng.uniform(0, 1, (2, 64, 96, 3)).astype(np.float32)
+                               for _ in range(2)], axis=1)
+        gt = rng.uniform(-5, 5, (2, 64, 96, 2)).astype(np.float32)
+        valid = (rng.rand(2, 64, 96) > 0.2).astype(np.float32)
+        out[name] = [torch.from_numpy(a) for a in (images, gt, valid)]
+    return out
+
+
+def _conv_kernels(fn, top=12):
+    """The device kernels of fn() whose names say convolution (cuDNN's
+    implicit GEMMs, Winograd, FFT and their transforms), by device time:
+    [(name, ms, calls)]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    keys = ("conv", "fft", "winograd", "implicit", "gemm", "wgrad", "dgrad", "region_transform",
+            "xmma", "cudnn")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if any(k in e.key.lower() for k in keys)]
+    return sorted(rows, key=lambda r: -r[1])[:top]
+
+
 def _lfn3_gradients(goldens, n_timed=3):
     """Standard and S+PseudoReg, fp32, at the goldens' params: ms per
-    forward+backward and peak memory at batch 8, 384x768; at batch 2, 64x96
-    the card's loss and per-layer gradients against the port on the CPU, and
-    the card's step run twice (the spread of the atomic adds in PyTorch's
-    backward of the resizes and gathers)."""
-    out = {}
+    forward+backward and peak memory at batch 8, 384x768; then on each of
+    the two batch-2 64x96 draws (`_lfn3_draws`) each layer's gradient on
+    the card, on the CPU and on the CPU in float64 (the yardstick), and the
+    card's step run twice (the spread of the atomic adds in PyTorch's
+    backward of the resizes and gathers). The card's loss within rel 1e-5
+    of the CPU's; each layer's card-vs-CPU reading within max(2e-5, 2x the
+    card's spread, 2x the CPU fp32 error against float64), and so is each
+    layer's card-vs-float64 reading: a layer whose gradient fp32 cannot
+    hold to 1e-5 on that draw (the CPU's own fp32 error says so) widens its
+    own gate, no other. Reported beside them: the card's error against
+    float64 under `cudnn.deterministic`, and the cuDNN convolution kernels
+    of one batch-2 step."""
+    out, failures = {}, []
+    draws = _lfn3_draws()
     for variant in ("standard", "s_pseudoreg"):
         sd = goldens[variant]
         model = _lfn3(variant, sd)
@@ -1596,47 +1676,64 @@ def _lfn3_gradients(goldens, n_timed=3):
         images = torch.rand(B, 2, H, W, 3, device="cuda", generator=g)
         gt = torch.rand(B, H, W, 2, device="cuda", generator=g) * 10.0 - 5.0
         valid = torch.ones(B, H, W, device="cuda")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _lfn3_grads(model, images, gt, valid)
-        times = []
-        for _ in range(n_timed):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _lfn3_grads(model, images, gt, valid)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        _, ms, ms_all, peak = _median_ms(lambda: _lfn3_grads(model, images, gt, valid), n_timed)
         del images, gt, valid
         torch.cuda.empty_cache()
-
-        rng = np.random.RandomState(0)
-        small = [torch.from_numpy(a) for a in (
-            rng.uniform(0, 1, (2, 2, 64, 96, 3)).astype(np.float32),
-            rng.uniform(-5, 5, (2, 64, 96, 2)).astype(np.float32),
-            (rng.rand(2, 64, 96) > 0.2).astype(np.float32))]
-        loss1, g1 = _lfn3_grads(model, *[t.cuda() for t in small])
-        loss2, g2 = _lfn3_grads(model, *[t.cuda() for t in small])
-        cpu_loss, cpu_grads = _lfn3_grads(_lfn3(variant, sd, "cpu"), *small)
-        spread = layer_max_rel(g2, g1)
-        rels = layer_max_rel({k: v.cpu() for k, v in g1.items()}, cpu_grads)
-        loss_rel = abs(loss1 - cpu_loss) / abs(cpu_loss)
-        bad = {n: r for n, r in rels.items() if not r <= max(2e-5, 2 * spread[n])}
-        worst = max(rels, key=rels.get)
-        ms = float(np.median(times))
-        out[variant] = {"ms": ms, "ms_all": [round(t, 3) for t in times], "peak_gib": peak,
-                        "loss_rel": loss_rel, "worst_layer": worst, "worst_rel": rels[worst],
-                        "spread_max": max(spread.values()), "twice_loss_equal": loss1 == loss2}
+        out[variant] = {"ms": ms, "ms_all": ms_all, "peak_gib": peak}
         log(f"lfn3 grad {variant} fp32 batch={B} {H}x{W}: {ms:.3f} ms per forward+backward "
-            f"(median of {n_timed}: {out[variant]['ms_all']}) peak_mem={peak:.3f} GiB; batch 2 "
-            f"64x96 card vs CPU: loss rel={loss_rel!r} worst layer {worst} max_rel="
-            f"{rels[worst]!r}; card twice: loss equal={loss1 == loss2} worst spread="
-            f"{max(spread.values())!r} ({max(spread, key=spread.get)})")
-        if not loss_rel <= 1e-5 or bad:
-            raise AssertionError(f"lfn3 {variant} gradients: loss rel {loss_rel!r}, layers past "
-                                 f"max(2e-5, 2x spread): {bad}")
-        del model
+            f"(median of {n_timed}: {ms_all}) peak_mem={peak:.3f} GiB")
+
+        cpu32 = _lfn3(variant, sd, "cpu")
+        cpu64 = _lfn3(variant, sd, "cpu", dtype=torch.float64)
+        for draw, small in draws.items():
+            card = [t.cuda() for t in small]
+            loss1, g1 = _lfn3_grads(model, *card)
+            loss2, g2 = _lfn3_grads(model, *card)
+            with deterministic(False):
+                _, g_det = _lfn3_grads(model, *card)
+            cpu_loss, cpu_grads = _lfn3_grads(cpu32, *small)
+            _, f64 = _lfn3_grads(cpu64, *[t.double() for t in small])
+            g1 = {k: v.cpu() for k, v in g1.items()}
+            spread = layer_max_rel({k: v.cpu() for k, v in g2.items()}, g1)
+            rels = layer_max_rel(g1, cpu_grads)
+            card_err = layer_max_rel(g1, f64)
+            cpu_err = layer_max_rel(cpu_grads, f64)
+            det_err = layer_max_rel({k: v.cpu() for k, v in g_det.items()}, f64)
+            loss_rel = abs(loss1 - cpu_loss) / abs(cpu_loss)
+            gate = gradient_gate(spread, cpu_err)
+            bad = {n: (rels[n], card_err[n], gate[n]) for n in rels
+                   if not (rels[n] <= gate[n] and card_err[n] <= gate[n])}
+            worst = max(rels, key=rels.get)
+            worst_card = max(card_err, key=card_err.get)
+            row = {"loss_rel": loss_rel, "worst_layer": worst, "worst_rel": rels[worst],
+                   "worst_gate": gate[worst], "spread_max": max(spread.values()),
+                   "twice_loss_equal": loss1 == loss2,
+                   "card_vs_f64_worst": [worst_card, card_err[worst_card]],
+                   "cpu_vs_f64_worst": max(cpu_err.values()),
+                   "deterministic_vs_f64_worst": max(det_err.values()),
+                   "layers": {n: {"card_vs_cpu": rels[n], "card_vs_f64": card_err[n],
+                                  "cpu_vs_f64": cpu_err[n], "det_vs_f64": det_err[n],
+                                  "spread": spread[n]}
+                              for n in sorted(rels, key=rels.get, reverse=True)[:4]}}
+            out[variant][draw] = row
+            log(f"lfn3 grad {variant} draw {draw} batch 2 64x96: loss rel={loss_rel!r}; card vs "
+                f"CPU worst {worst} {rels[worst]!r} (gate {gate[worst]!r}); against float64: card "
+                f"worst {worst_card} "
+                f"{card_err[worst_card]!r} (gate {gate[worst_card]!r}), CPU fp32 there "
+                f"{cpu_err[worst_card]!r}, cudnn.deterministic there {det_err[worst_card]!r}; "
+                f"card twice: loss equal={loss1 == loss2} worst spread="
+                f"{max(spread.values())!r} ({max(spread, key=spread.get)}); layers "
+                f"{json.dumps(row['layers'])}")
+            if not loss_rel <= 1e-5 or bad:
+                failures.append(f"lfn3 {variant} draw {draw}: loss rel {loss_rel!r}, layers past "
+                                f"their gates: {bad}")
+        kernels = _conv_kernels(lambda: _lfn3_grads(model, *[t.cuda() for t in draws["separate"]]))
+        out[variant]["conv_kernels"] = kernels
+        log(f"lfn3 grad {variant} batch 2 cuDNN conv kernels (name, ms, calls): {kernels!r}")
+        del model, cpu32, cpu64
         torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
     return out
 
 
@@ -1829,6 +1926,341 @@ def phase_ifnet(state):
     res["seconds"] = time.perf_counter() - t0
     state["ifnet"] = res
     log(f"phase ifnet: ok in {res['seconds']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# The family trainers and RAFT-small's UFlow step (`train/trainers.py`)
+
+FLOW_KINDS = ("lfn3", "lfn3_unsup", "simple_flow", "simple_flow_unsup", "ifnet", "ifnet_unsup",
+              "raft_uflow_unsup")
+# tools/unsup_bootstrap_tpu.sh's round-5 recipe: crop 256x384, batch 4; the
+# occlusion masks on from step 0
+UFLOW_HW, UFLOW_B = (256, 384), 4
+UFLOW_KW = dict(iters=4, selfsup_crop=8, sequence_gamma=0.8, occlusion_warmup_steps=0)
+UFLOW_CHECK_KW = dict(UFLOW_KW, iters=2)  # the batch-2 check's depth (tests' shape)
+
+
+def _uflow_launches(iters, hw, crop=8):
+    """K1 and K3 per UFlow step: 4 model runs (fw and bw on the frames, and
+    on the student's crop) x iters x RAFT-small's non-empty pyramid levels
+    (4, the coarsest halved with the floor; an empty level launches
+    nothing), each lookup a K1 launch (training does not fuse the coarse
+    levels) whose backward is a K3 launch."""
+    def levels(H, W):
+        h, w, n = H // 8, W // 8, 0
+        for _ in range(4):
+            n += h > 0 and w > 0
+            h, w = h // 2, w // 2
+        return n
+
+    H, W = hw
+    n = 2 * iters * (levels(H, W) + levels(H - 2 * crop, W - 2 * crop))
+    return {"corr_lookup_level": n, "corr_lookup_level_bwd": n}
+
+
+FLOW_WEIGHTS = {"lfn3": "tests/goldens/lfn3_standard_params.npz",
+                "simple_flow": "tests/goldens/simple_flow_params.npz",
+                "ifnet": "tests/goldens/ifnet_params.npz",
+                "raft_uflow": "checkpoints/raft_small.npz"}
+
+
+def _flow_trainer(kind, device, step_kwargs=None, model_config=None):
+    """FlowTrainer of `kind` at the goldens' params (RAFT-small at
+    checkpoints/raft_small.npz): at the port's seeded initialization
+    LiteFlowNet3's fp32 gradients lie up to 0.85 (a layer's max|d| over its
+    max) off float64 on the CPU itself, no yardstick for the card."""
+    from raft_optical_flow_tpu_torch.train.trainers import FlowTrainer
+    from raft_optical_flow_tpu_torch.utils.weights import load_flax_checkpoint
+
+    restore = load_flax_checkpoint(os.path.join(REPO, FLOW_WEIGHTS[kind.replace("_unsup", "")]))
+    return FlowTrainer(kind, (64, 96), model_config=model_config, restore_variables=restore,
+                       device=device, step_kwargs=step_kwargs)
+
+
+def flow_step(trainer, batch, step=0):
+    """(metrics, {name: grad on the CPU}) of one step (`utils/grad_check.py`)."""
+    from raft_optical_flow_tpu_torch.utils import grad_check
+
+    return grad_check.flow_step(trainer, batch, step)
+
+
+def _flow_batch(B, H, W, seed, device="cuda"):
+    """cli/train_flow.py's synthetic batch (uniform 0-255 frames, flow in
+    +-5, valid ones) as tensors on `device`."""
+    from raft_optical_flow_tpu_torch.cli.train_flow import _synthetic_batches
+
+    return {k: torch.from_numpy(v).to(device) for k, v in
+            next(_synthetic_batches(B, (H, W), seed)).items()}
+
+
+def _flow_step_rows(n_timed=3):
+    """Each kind at full width (families batch 8, 384x768; UFlow batch 4,
+    256x384, 4 iterations): one FlowTrainer.train_step to warm up, then
+    n_timed timed (host clock around a synchronize), the median ms/step and
+    peak memory; every metric finite, grad_norm > 0, every step's launches
+    counted from 0 (UFlow: `_uflow_launches` of K1 and K3, 64 each; the
+    families none)."""
+    out = {}
+    for kind in FLOW_KINDS:
+        uflow = kind == "raft_uflow_unsup"
+        B, (H, W) = (UFLOW_B, UFLOW_HW) if uflow else (FAMILY_TRAIN_B, FAMILY_TRAIN_HW)
+        trainer = _flow_trainer(kind, "cuda", UFLOW_KW if uflow else None)
+        batch = _flow_batch(B, H, W, seed=3)
+        counts = []
+
+        def step():
+            reset_all()
+            m = trainer.train_step(batch)
+            counts.append(launch_counts())
+            return m
+
+        metrics, ms, ms_all, peak = _median_ms(step, n_timed)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        for c in counts:
+            expect_launches(c, _uflow_launches(4, UFLOW_HW) if uflow else {},
+                            f"flow_train {kind} step")
+        if not all(math.isfinite(v) for v in metrics.values()) or not metrics["grad_norm"] > 0:
+            raise AssertionError(f"flow_train {kind}: metrics {metrics}")
+        out[kind] = {"ms": ms, "ms_all": ms_all, "peak_gib": peak, "batch": B, "hw": [H, W],
+                     "launches": counts[-1], "metrics": metrics}
+        log(f"flow_train {kind} fp32 batch={B} {H}x{W}: {ms:.3f} ms/step (median of {n_timed}: "
+            f"{ms_all}) peak_mem={peak:.3f} GiB launches/step "
+            f"{ {k: v for k, v in counts[-1].items() if v} } metrics {metrics}")
+        del trainer, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def _uflow_frames(B, hw):
+    """B real frame pairs at hw: the RAFT-small golden's 192x320 pair
+    resized bilinearly, and its flips (left-right, up-down, both); 0-255,
+    with a seeded flow for the monitoring EPE."""
+    g = np.load(os.path.join(REPO, "tests", "goldens", "raft_small.npz"))
+    pair = torch.from_numpy(np.stack([g["image1"], g["image2"]])).float().permute(0, 3, 1, 2)
+    pair = F.interpolate(pair, size=hw, mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+    views = [pair, pair.flip(2), pair.flip(1), pair.flip(1).flip(2)][:B]
+    flow = np.random.RandomState(7).uniform(-3, 3, (B, *hw, 2)).astype(np.float32)
+    return {"image1": torch.stack([v[0] for v in views]).numpy(),
+            "image2": torch.stack([v[1] for v in views]).numpy(), "flow": flow}
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the backward multiplies the cotangent by c."""
+
+    @staticmethod
+    def forward(ctx, x, c):
+        ctx.c = c
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.c, None
+
+
+BWD_SCALE = 1.0 + 2.0**-10  # not a power of 2: every product of the backward rounds anew
+
+
+def _backward_scaled(model):
+    """A forward hook on `model` whose outputs pass their cotangent on times
+    BWD_SCALE: the forward is unchanged bit for bit, and the model's whole
+    backward runs on scaled values, so gradients / BWD_SCALE differ from the
+    unscaled ones by the backward's own rounding."""
+    return model.register_forward_hook(lambda m, inputs, out: _ScaleGrad.apply(out, BWD_SCALE))
+
+
+def _uflow_vs_plain():
+    """RAFT-small's UFlow step at full width (batch 4, 256x384, 4 iterations,
+    the 240x368 student crops; real frames, `_uflow_frames`; train state at
+    step 200, the self-supervision live) through K1 and K3, against the
+    same step through the plain lookup (`corr_impl='plain'`), from the same
+    weights on the same batch, under cuDNN's and PyTorch's deterministic
+    algorithms, as phase train holds RAFT-small's supervised step: the loss
+    bit for bit (K1 repeats its plain version's operations), each layer's
+    gradient within max(2e-5, 2x the spread of the kernel step run twice,
+    2x the floor). K1 leaves the forward bit for bit, so the two steps
+    differ only in K3's sums, which run in another order than the plain
+    backward's, and this step's fnet gradient sums K3's output over 4 runs
+    x 4 iterations x 4 levels through instance norms. The floor is that
+    kind of difference and no other: the plain step against itself with
+    the cotangent into the model scaled by 1 + 2^-10 (`_backward_scaled`),
+    which rounds every product of its backward anew and leaves its forward
+    as it was (a change of the weights would move the forward across the
+    occlusion masks' thresholds as well)."""
+    from raft_optical_flow_tpu_torch.models import RAFTConfig
+
+    batch = _uflow_frames(UFLOW_B, UFLOW_HW)
+    runs = []
+    with deterministic(algorithms=True):
+        for impl, scaled in (("cuda", False), ("cuda", False), ("plain", False), ("plain", True)):
+            trainer = _flow_trainer("raft_uflow_unsup", "cuda", UFLOW_KW,
+                                    RAFTConfig(small=True, corr_impl=impl))
+            hook = _backward_scaled(trainer.model) if scaled else None
+            reset_all()
+            runs.append(flow_step(trainer, batch, step=200))
+            if hook is not None:
+                hook.remove()
+                runs[-1] = (runs[-1][0], {k: g / BWD_SCALE for k, g in runs[-1][1].items()})
+            expect_launches(launch_counts(), _uflow_launches(4, UFLOW_HW) if impl == "cuda" else {},
+                            f"flow_train raft_uflow_unsup full-width step, corr_impl={impl}")
+            del trainer
+    (m1, g1), (m2, g2), (mp, gp), (ms, g_scaled) = runs
+    spread = layer_max_rel(g2, g1)
+    floor = layer_max_rel(g_scaled, gp)
+    rels = layer_max_rel(g1, gp)
+    gate = gradient_gate(spread, floor)
+    bad = {n: (r, gate[n]) for n, r in rels.items() if not r <= gate[n]}
+    worst = max(rels, key=rels.get)
+    out = {"loss": m1["loss"], "loss_plain": mp["loss"], "worst_layer": worst,
+           "worst_rel": rels[worst], "worst_gate": gate[worst], "spread_max": max(spread.values()),
+           "floor_max": max(floor.values())}
+    log(f"flow_train raft_uflow_unsup fp32 batch={UFLOW_B} {UFLOW_HW[0]}x{UFLOW_HW[1]} K1/K3 vs "
+        f"plain lookup (deterministic algorithms on): loss {m1['loss']!r} vs {mp['loss']!r}; "
+        f"worst layer {worst} max_rel={rels[worst]!r} (gate {gate[worst]!r}, floor there "
+        f"{floor[worst]!r}); kernel step twice: worst spread={max(spread.values())!r}; plain "
+        f"floor worst={max(floor.values())!r} ({max(floor, key=floor.get)})")
+    if m1["loss"] != mp["loss"] or ms["loss"] != mp["loss"] or bad:
+        raise AssertionError(f"flow_train UFlow K1/K3 vs plain: loss {m1['loss']!r} vs "
+                             f"{mp['loss']!r}, layers past their gates: {bad}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _flow_card_vs_cpu():
+    """Each kind at batch 2 (families 64x96 synthetic; UFlow 48x64 crops of
+    the golden frames, `grad_check.uflow_check_batch`, 2 iterations, train
+    state at step 200 so the self-supervision weight is live): the card's
+    step against the port's on the CPU from the same weights, loss rel <=
+    1e-5 and each layer's gradient within `gradient_gate`: the families
+    max(2e-5, 2x the spread of the card's step run twice). RAFT-small's
+    UFlow gradients are ill-conditioned: its gate also takes 2x the floor,
+    the CPU step against itself with every weight changed by one ulp, and
+    the card's error against the port in float64 on the CPU must lie within
+    it too. Reported beside it, the reading that says which side carries
+    the error: the CPU's fp32 error against float64 and the card's, also
+    under cudnn.deterministic."""
+    from raft_optical_flow_tpu_torch.models import RAFTConfig
+    from raft_optical_flow_tpu_torch.utils.grad_check import nudge_weights, uflow_check_batch
+
+    out = {}
+    f64_cfg = RAFTConfig(small=True, corr_impl="plain", compute_dtype=torch.float64)
+    for kind in FLOW_KINDS:
+        uflow = kind == "raft_uflow_unsup"
+        kw, step = (UFLOW_CHECK_KW, 200) if uflow else (None, 0)
+        batch = (uflow_check_batch(REPO) if uflow
+                 else {k: v.numpy() for k, v in _flow_batch(2, 64, 96, seed=5, device="cpu").items()})
+        runs = {}
+        for name in ("card", "card2", "cpu") + (("card_det", "cpu_nudged", "f64") if uflow else ()):
+            device = "cuda" if name.startswith("card") else "cpu"
+            trainer = _flow_trainer(kind, device, kw, f64_cfg if name == "f64" else None)
+            if name == "cpu_nudged":
+                nudge_weights(trainer.model)
+            dtype = np.float64 if name == "f64" else np.float32
+            reset_all()
+            with deterministic(False) if name == "card_det" else contextlib.nullcontext():
+                runs[name] = flow_step(trainer, {k: v.astype(dtype) for k, v in batch.items()}, step)
+            if device == "cuda":
+                expect_launches(launch_counts(), _uflow_launches(2, (48, 64)) if uflow else {},
+                                f"flow_train {kind} batch-2 step")
+        (m1, g1), (m2, g2), (cpu_m, cpu_grads) = runs["card"], runs["card2"], runs["cpu"]
+        spread = layer_max_rel(g2, g1)
+        rels = layer_max_rel(g1, cpu_grads)
+        row, card_err, floor = {}, rels, None
+        if uflow:
+            f64 = runs["f64"][1]
+            floor = layer_max_rel(runs["cpu_nudged"][1], cpu_grads)
+            card_err, cpu_err = layer_max_rel(g1, f64), layer_max_rel(cpu_grads, f64)
+            det_err = layer_max_rel(runs["card_det"][1], f64)
+            worst_card = max(card_err, key=card_err.get)
+            row = {"floor_max": max(floor.values()),
+                   "card_vs_f64_worst": [worst_card, card_err[worst_card]],
+                   "cpu_vs_f64_worst": max(cpu_err.values()),
+                   "deterministic_vs_f64_worst": max(det_err.values())}
+        gate = gradient_gate(spread, floor)
+        loss_rel = abs(m1["loss"] - cpu_m["loss"]) / abs(cpu_m["loss"])
+        bad = {n: (rels[n], card_err[n], gate[n]) for n in rels
+               if not (rels[n] <= gate[n] and card_err[n] <= gate[n])}
+        worst = max(rels, key=rels.get)
+        out[kind] = dict(row, loss_rel=loss_rel, worst_layer=worst, worst_rel=rels[worst],
+                         worst_gate=gate[worst], spread_max=max(spread.values()),
+                         twice_loss_equal=m1["loss"] == m2["loss"])
+        log(f"flow_train {kind} batch 2 card vs CPU: loss rel={loss_rel!r} worst layer {worst} "
+            f"max_rel={rels[worst]!r} (gate {gate[worst]!r}); card twice: loss equal="
+            f"{m1['loss'] == m2['loss']} worst spread={max(spread.values())!r} "
+            f"({max(spread, key=spread.get)})"
+            + (f"; CPU floor worst={row['floor_max']!r} ({max(floor, key=floor.get)}); against "
+               f"float64 on the CPU: card worst {row['card_vs_f64_worst']!r} (gate "
+               f"{gate[worst_card]!r}), CPU fp32 there {cpu_err[worst_card]!r}, "
+               f"cudnn.deterministic there {det_err[worst_card]!r}; worst: CPU fp32 "
+               f"{row['cpu_vs_f64_worst']!r}, cudnn.deterministic "
+               f"{row['deterministic_vs_f64_worst']!r}" if uflow else ""))
+        if not loss_rel <= 1e-5 or bad:
+            raise AssertionError(f"flow_train {kind}: loss rel {loss_rel!r}, layers past their "
+                                 f"gates: {bad}")
+    return out
+
+
+def _range_map_checks():
+    """UFlow's range map (the splat of every wang mask) at the full-width
+    UFlow shape: twice on the card bit for bit, and within 1e-5 of the CPU,
+    with no downsampling (the wang estimator's) and at 4x with the bias
+    correction and the resize (wang4's); the same for UnFlow's splat."""
+    from raft_optical_flow_tpu_torch.losses import uflow
+    from raft_optical_flow_tpu_torch.ops.unflow_ops import forward_warp_op
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    H, W = UFLOW_HW
+    flow = torch.rand(UFLOW_B, H, W, 2, device="cuda", generator=g) * 16.0 - 8.0
+    out = {}
+    for name, fn in (("range_map", lambda f: uflow.compute_range_map(f, 1, False, False)),
+                     ("range_map_4", lambda f: uflow.compute_range_map(f, 4, True, True)),
+                     ("forward_warp_op", forward_warp_op)):
+        a, b = fn(flow), fn(flow)
+        d = float((a.cpu() - fn(flow.cpu())).abs().max())
+        out[name] = {"twice_equal": bool(torch.equal(a, b)), "cpu_max_abs": d,
+                     "mean": float(a.mean())}
+        log(f"flow_train {name} batch={UFLOW_B} {H}x{W}: card twice bit for bit="
+            f"{out[name]['twice_equal']} card vs CPU max|d|={d!r} (1e-5) mean={out[name]['mean']!r}")
+        if not (out[name]["twice_equal"] and d <= 1e-5):
+            raise AssertionError(f"flow_train {name}: not deterministic or off the CPU")
+    return out
+
+
+def _train_flow_cli():
+    """`train_flow.main` for two synthetic steps on the card; the weights
+    file it writes reloads into the model it trained."""
+    import shutil
+
+    from raft_optical_flow_tpu_torch.cli import train_flow
+    from raft_optical_flow_tpu_torch.utils.weights import flax_to_state_dict, load_flax_checkpoint
+
+    ckpt = os.path.join(REPO, "raft_optical_flow_tpu_torch", "_build", "flow_train_cli")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        trainer = train_flow.main(["--model", "simple_flow", "--unsupervised", "--synthetic",
+                                   "--num_steps", "2", "--batch_size", "2", "--image_size", "64",
+                                   "96", "--checkpoint_dir", ckpt])
+        weights = flax_to_state_dict(load_flax_checkpoint(os.path.join(ckpt, "simple_flow_unsup.npz")))
+        sd = trainer.model.state_dict()
+        ok = (trainer.state.step == 2 and weights.keys() == sd.keys()
+              and all(torch.equal(weights[k], v.cpu()) for k, v in sd.items()))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"flow_train train_flow CLI (simple_flow --unsupervised, 2 synthetic steps on "
+        f"{trainer.device}): weights file reloads equal={ok}")
+    if not ok:
+        raise AssertionError("train_flow CLI: the weights file does not reload")
+    return ok
+
+
+def phase_flow_train(state):
+    t0 = time.perf_counter()
+    reset_all()
+    res = {"steps": _flow_step_rows(), "uflow_vs_plain": _uflow_vs_plain(),
+           "card_vs_cpu": _flow_card_vs_cpu(), "splats": _range_map_checks(),
+           "cli": _train_flow_cli()}
+    res["seconds"] = time.perf_counter() - t0
+    state["flow_train"] = res
+    log(f"phase flow_train: ok in {res['seconds']:.1f} s")
 
 
 def _bytes_needed(levels, coords_flat, radius, out_itemsize):

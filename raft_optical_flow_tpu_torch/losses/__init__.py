@@ -1,5 +1,7 @@
 """Flow losses: RAFT's sequence loss, LiteFlowNet3's multi-scale loss,
-SimpleFlowNet's supervised and unsupervised losses, IFNet's LapLoss."""
+SimpleFlowNet's supervised and unsupervised losses, IFNet's LapLoss, and
+the UFlow and UnFlow unsupervised-loss libraries (modules `uflow`,
+`unflow`)."""
 
 from raft_optical_flow_tpu_torch.losses.laploss import lap_loss, laploss
 from raft_optical_flow_tpu_torch.losses.sequence import multiscale_sequence_loss, sequence_loss
@@ -8,6 +10,7 @@ from raft_optical_flow_tpu_torch.losses.simple_flow_loss import (
     simple_flow_loss,
 )
 from raft_optical_flow_tpu_torch.losses.unsupervised import unsupervised_loss
+from raft_optical_flow_tpu_torch.losses import uflow, unflow
 
 __all__ = [
     "sequence_loss",
@@ -17,4 +20,6 @@ __all__ = [
     "lap_loss",
     "laploss",
     "unsupervised_loss",
+    "uflow",
+    "unflow",
 ]

@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from raft_optical_flow_tpu_torch.ops.grid import widen
+
 IntPair = Union[int, Sequence[int]]
 
 
@@ -125,10 +127,11 @@ class PReLU(nn.Module):
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Per-sample, per-channel spatial normalization of NCHW x; no affine.
 
-    One-pass fp32 stats, E[x^2] - E[x]^2, clamped at 0; the normalize pass runs
-    in the input dtype (`layers.py::instance_norm` of the JAX package).
+    One-pass fp32 stats (float64 for float64 x), E[x^2] - E[x]^2, clamped at
+    0; the normalize pass runs in the input dtype (`layers.py::instance_norm`
+    of the JAX package).
     """
-    x32 = x.float()
+    x32 = widen(x)
     mean = x32.mean(dim=(2, 3), keepdim=True)
     mean_sq = (x32 * x32).mean(dim=(2, 3), keepdim=True)
     var = torch.clamp(mean_sq - mean * mean, min=0.0)

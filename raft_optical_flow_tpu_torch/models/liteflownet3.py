@@ -21,6 +21,8 @@ compute dtype (flax's `nn.Conv(dtype=...)`); the transposed convs run in
 their input's dtype, so the `up_flow` and `up_conf` ones stay fp32; flow and
 conf are carried fp32 between modules, the correlations sum in fp32 and the
 warp coordinates are fp32. fp32 runs with TF32 off (`fp32_policy`).
+float64 (frames in float64 too) runs everything in float64, fp32 weights
+cast exactly: the CPU yardstick that fp32 gradients are held against.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from raft_optical_flow_tpu_torch.models.layers import (
     nchw,
     nhwc,
 )
-from raft_optical_flow_tpu_torch.ops.grid import resize_bilinear
+from raft_optical_flow_tpu_torch.ops.grid import resize_bilinear, widen
 from raft_optical_flow_tpu_torch.ops.padding import InputScaler
 from raft_optical_flow_tpu_torch.ops.spatial_corr import spatial_correlation_sample
 from raft_optical_flow_tpu_torch.ops.warp import warp_lfn3
@@ -305,8 +307,9 @@ class LiteFlowNet3(nn.Module):
     def __init__(self, config: LFN3Config = LFN3Config(), device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.compute_dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"compute_dtype must be float32 or bfloat16, got {config.compute_dtype}")
+        if config.compute_dtype not in (torch.float32, torch.bfloat16, torch.float64):
+            raise ValueError(f"compute_dtype must be float32, bfloat16 or float64, "
+                             f"got {config.compute_dtype}")
         self.config = cfg = config
         dt = cfg.compute_dtype
         self.feature_net = FeatureExtractor(dt)
@@ -355,17 +358,17 @@ class LiteFlowNet3(nn.Module):
             if i >= cfg.min_mod_level:
                 j = i - cfg.min_mod_level
                 flow, conf = getattr(self, f"deformation_nets_{j}")(f1, flow, conf)
-                flow, conf = flow.float(), conf.float()
+                flow, conf = widen(flow), widen(conf)
                 conf_preds.append(conf)
                 corr = getattr(self, f"modulation_nets_{j}")(f1, f2, flow, conf)
-            flow = getattr(self, f"matching_nets_{i}")(f1, f2, flow, corr).float()
+            flow = widen(getattr(self, f"matching_nets_{i}")(f1, f2, flow, corr))
             flow, sub_feat = getattr(self, f"subpixel_nets_{i}")(f1, f2, flow)
             flow, conf, reg_feat = getattr(self, f"regularization_nets_{i}")(
                 *images_pyr[i], f1, flow)
-            flow = flow.float()
+            flow = widen(flow)
             flow_preds.append(flow)
             if conf is not None:
-                conf = conf.float()
+                conf = widen(conf)
                 conf_preds.append(conf)
             corr = None
 

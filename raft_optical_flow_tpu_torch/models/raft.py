@@ -39,6 +39,9 @@ Policies (`RAFTConfig.compute_dtype`):
     to bf16 once per forward and the on-demand windows take bf16 operands
     with fp32 sums (the JAX package's Precision.DEFAULT); under fp32 they
     stay fp32, no TF32.
+  - float64 (frames in float64 too; `corr_impl='plain'`, all-pairs volume):
+    everything in float64, fp32 weights cast exactly. The CPU yardstick
+    that fp32 gradients are held against.
 
 `fused_gru` (RAFT-standard; RAFT-small ignores it, as the JAX package's
 `SmallUpdateBlock` does) runs the SepConvGRU through K7
@@ -124,9 +127,17 @@ class RAFT(nn.Module):
         super().__init__()
         if config.corr_impl not in ("cuda", "plain"):
             raise ValueError(f"corr_impl must be 'cuda' or 'plain', got {config.corr_impl!r}")
-        if config.compute_dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"compute_dtype must be float32 or bfloat16, got {config.compute_dtype}")
+        if config.compute_dtype not in (torch.float32, torch.bfloat16, torch.float64):
+            raise ValueError(f"compute_dtype must be float32, bfloat16 or float64, "
+                             f"got {config.compute_dtype}")
+        if config.compute_dtype == torch.float64 and (config.corr_impl != "plain"
+                                                      or config.alternate_corr):
+            raise ValueError("float64 runs the plain all-pairs lookup: corr_impl='plain', "
+                             "alternate_corr=False")
         self.config = config
+        # the dtype of the values the policies carry in fp32 (coords, flow,
+        # fmaps, correlation sums): float64 under the float64 policy
+        self._wide = torch.float64 if config.compute_dtype == torch.float64 else torch.float32
         corr_ch = config.corr_levels * (2 * config.corr_radius + 1) ** 2
         hdim, cdim = config.hidden_dim, config.context_dim
         if config.small:
@@ -180,10 +191,10 @@ class RAFT(nn.Module):
         cfg = self.config
         dtype = cfg.compute_dtype
         N, H, W, _ = image1.shape
-        image1 = 2.0 * (image1.float() / 255.0) - 1.0
-        image2 = 2.0 * (image2.float() / 255.0) - 1.0
+        image1 = 2.0 * (image1.to(self._wide) / 255.0) - 1.0
+        image2 = 2.0 * (image2.to(self._wide) / 255.0) - 1.0
         pair = torch.cat([image1, image2], dim=0).permute(0, 3, 1, 2).to(dtype)
-        fmaps = self.fnet(pair, train, bn_train, generator).float().permute(0, 2, 3, 1)
+        fmaps = self.fnet(pair, train, bn_train, generator).to(self._wide).permute(0, 2, 3, 1)
         fmap1, fmap2 = fmaps[:N], fmaps[N:]
         if cfg.alternate_corr:
             # pool in fp32, then round once (bf16 policy) for every iteration
@@ -195,11 +206,12 @@ class RAFT(nn.Module):
         else:
             corr_state = build_corr_pyramid_from_fmaps(fmap1, fmap2, cfg.corr_levels, dtype)
 
-        cnet = self.cnet(image1.permute(0, 3, 1, 2).to(dtype), train, bn_train, generator).float()
+        cnet = self.cnet(image1.permute(0, 3, 1, 2).to(dtype), train, bn_train, generator)
+        cnet = cnet.to(self._wide)
         net, inp = torch.split(cnet, [cfg.hidden_dim, cfg.context_dim], dim=1)
         net = torch.tanh(net).to(dtype)
         inp = F.relu(inp).to(dtype)
-        coords0 = coords_grid(N, H // 8, W // 8, device=image1.device)
+        coords0 = coords_grid(N, H // 8, W // 8, device=image1.device, dtype=self._wide)
         return corr_state, net, inp, coords0
 
     def _step(self, corr_state, net, inp, coords0, coords1, test_mode: bool):
@@ -208,12 +220,12 @@ class RAFT(nn.Module):
         corr = self._lookup(corr_state, coords1, test_mode).permute(0, 3, 1, 2)
         flow = (coords1 - coords0).to(dtype).permute(0, 3, 1, 2)
         net, mask, delta = self.update_block(net, inp, corr, flow)
-        return net, mask, coords1 + delta.float().permute(0, 2, 3, 1)
+        return net, mask, coords1 + delta.to(self._wide).permute(0, 2, 3, 1)
 
     def _test(self, corr_state, net, inp, coords0, iters, flow_init):
         cfg = self.config
         N, h, w, _ = coords0.shape
-        coords1 = coords0 if flow_init is None else coords0 + flow_init.float()
+        coords1 = coords0 if flow_init is None else coords0 + flow_init.to(self._wide)
         mask = None
         for _ in range(iters):
             net, mask, coords1 = self._step(corr_state, net, inp, coords0, coords1, True)
@@ -224,7 +236,7 @@ class RAFT(nn.Module):
         else:
             if mask is None:  # iters == 0: the JAX package starts from a zero mask
                 mask = torch.zeros(N, 64 * 9, h, w, dtype=cfg.compute_dtype, device=coords0.device)
-            flow_up = convex_upsample(flow_lo, mask.float().permute(0, 2, 3, 1))
+            flow_up = convex_upsample(flow_lo, mask.to(self._wide).permute(0, 2, 3, 1))
         return flow_lo, flow_up
 
     def _train_iteration(self, corr_state, net, inp, coords0, coords1):
@@ -235,13 +247,13 @@ class RAFT(nn.Module):
         flow_lo = coords1 - coords0
         if cfg.small:
             return net, coords1, upflow8(flow_lo)
-        mask = mask.float().permute(0, 2, 3, 1)
+        mask = mask.to(self._wide).permute(0, 2, 3, 1)
         if cfg.checkpoint_upsample:
             return net, coords1, checkpoint(convex_upsample, flow_lo, mask, use_reentrant=False)
         return net, coords1, convex_upsample(flow_lo, mask)
 
     def _train(self, corr_state, net, inp, coords0, iters, flow_init):
-        coords1 = coords0 if flow_init is None else coords0 + flow_init.float()
+        coords1 = coords0 if flow_init is None else coords0 + flow_init.to(self._wide)
         preds = []
         for _ in range(iters):
             if self.config.remat:

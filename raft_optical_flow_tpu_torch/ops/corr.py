@@ -19,6 +19,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from raft_optical_flow_tpu_torch.ops.grid import widen
+
 
 def avg_pool2x2(x: torch.Tensor) -> torch.Tensor:
     """2x2 stride-2 average pool over the last two dims of [..., H, W]; odd
@@ -39,16 +41,16 @@ def build_corr_pyramid_from_fmaps(
     dot product, so this equals pooling the volume).
 
     fmap1/fmap2: [B, H, W, C] fp32. dtype float32: full fp32 products and a
-    fp32 volume. dtype bfloat16 (the mixed-precision policy): bf16 operands,
+    fp32 volume (float64, fmaps in float64: a float64 volume). dtype bfloat16 (the mixed-precision policy): bf16 operands,
     fp32 accumulation, bf16 volume; the 1/sqrt(C) scale is applied to the
     bf16 product (exact when C is a power of 4, as C = 256 is).
     Returns levels of [B, H*W, Hl, Wl] in `dtype`.
     """
     B, H, W, C = fmap1.shape
-    f1 = fmap1.reshape(B, H * W, C).float().to(dtype)
+    f1 = widen(fmap1.reshape(B, H * W, C)).to(dtype)
     scale = C**-0.5
     pyramid = []
-    f2 = fmap2.float()
+    f2 = widen(fmap2)
     for lvl in range(num_levels):
         Hl, Wl = f2.shape[1:3]
         corr = torch.matmul(f1, f2.reshape(B, Hl * Wl, C).to(dtype).transpose(1, 2))
@@ -71,14 +73,15 @@ def sample_corr_window(
     """Bilinear (2r+1)^2 window of corr_l around (cx, cy) per query.
 
     corr_l: [B, Q, Hl, Wl] fp32 or bf16; cx, cy: [B, Q] fp32 level-l centres.
-    Returns [B, Q, (2r+1)^2] fp32 (fp32 weights and sums). Out-of-bounds taps
-    and empty levels (Hl or Wl = 0) read 0.
+    Returns [B, Q, (2r+1)^2] fp32 (fp32 weights and sums; float64 for a
+    float64 volume and centres). Out-of-bounds taps and empty levels (Hl or
+    Wl = 0) read 0.
     """
     B, Q, Hl, Wl = corr_l.shape
     ox, oy = window_offsets(radius, corr_l.device)
     K2 = ox.numel()
     if Hl == 0 or Wl == 0:
-        return torch.zeros(B, Q, K2, dtype=torch.float32, device=corr_l.device)
+        return torch.zeros(B, Q, K2, dtype=widen(cx).dtype, device=corr_l.device)
     px = cx[..., None] + ox
     py = cy[..., None] + oy
     x0 = torch.floor(px)
@@ -94,7 +97,7 @@ def sample_corr_window(
     def tap(xi, yi):
         inb = (xi >= 0) & (xi <= Wl - 1) & (yi >= 0) & (yi <= Hl - 1)
         idx = yi.clamp(0, Hl - 1) * Wl + xi.clamp(0, Wl - 1)
-        v = torch.gather(flat, 2, idx).float()
+        v = widen(torch.gather(flat, 2, idx))
         return torch.where(inb, v, torch.zeros((), device=v.device))
 
     v00 = tap(x0i, y0i)
@@ -119,8 +122,8 @@ def corr_pyramid_lookup(
     concatenated coarse-last.
     """
     B, h, w, _ = coords.shape
-    cx = coords[..., 0].reshape(B, h * w).float()
-    cy = coords[..., 1].reshape(B, h * w).float()
+    cx = widen(coords[..., 0].reshape(B, h * w))
+    cy = widen(coords[..., 1].reshape(B, h * w))
     out = [
         sample_corr_window(c, cx * (1.0 / 2**lvl), cy * (1.0 / 2**lvl), radius)
         for lvl, c in enumerate(pyramid)

@@ -3,8 +3,9 @@
 Counterpart of `raft_optical_flow_tpu/ops/grid.py` (`coords_grid`,
 `bilinear_sampler`, `resize_bilinear_align_corners`, `resize_bilinear`,
 `upflow8`), plus `resize_nearest`, the nearest resize of
-`jax.image.resize`, and `abs_jax` and `clip_jax`, `jnp.abs` and `jnp.clip`
-with JAX's gradients where torch's differ. NHWC in and out. A tensor given as an NHWC view of a
+`jax.image.resize`, `abs_jax` and `clip_jax`, `jnp.abs` and `jnp.clip`
+with JAX's gradients where torch's differ, and `widen`, the fp32 (or
+float64) carry dtype. NHWC in and out. A tensor given as an NHWC view of a
 contiguous NCHW tensor (`x.permute(0, 2, 3, 1)`) goes through
 `bilinear_sampler` and `resize_bilinear` without a copy, and what they
 return is such a view again: the models call them from NCHW code.
@@ -54,6 +55,13 @@ def _bilinear_taps(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 
     return (tap(x0i, y0i) * (1 - wy) * (1 - wx) + tap(x0i + 1, y0i) * (1 - wy) * wx
             + tap(x0i, y0i + 1) * wy * (1 - wx) + tap(x0i + 1, y0i + 1) * wy * wx)
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """x in fp32, or in float64 when it is float64: the dtype of the values
+    the policies carry in fp32 (flows, warp coordinates, correlation sums),
+    so that a float64 run (a CPU yardstick for gradients) stays float64."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def abs_jax(x: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from raft_optical_flow_tpu_torch.ops.grid import widen
+
 
 def spatial_correlation_sample(in1: torch.Tensor, in2: torch.Tensor, patch_size: int,
                                dilation_patch: int = 1) -> torch.Tensor:
@@ -28,8 +30,8 @@ def spatial_correlation_sample(in1: torch.Tensor, in2: torch.Tensor, patch_size:
     B, H, W, C = in1.shape
     p, d = patch_size, dilation_patch
     lo, hi = d * ((p - 1) // 2), d * (p // 2)
-    a = in1.permute(0, 3, 1, 2).float()
-    b = F.pad(in2.permute(0, 3, 1, 2), (lo, hi, lo, hi)).float()
+    a = widen(in1.permute(0, 3, 1, 2))
+    b = widen(F.pad(in2.permute(0, 3, 1, 2), (lo, hi, lo, hi)))
     outs = [(a * b[:, :, pi * d:pi * d + H, pj * d:pj * d + W]).sum(dim=1)
             for pi in range(p) for pj in range(p)]
     return torch.stack(outs, dim=1).to(in1.dtype).permute(0, 2, 3, 1)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from raft_optical_flow_tpu_torch.ops.grid import bilinear_sampler, coords_grid
+from raft_optical_flow_tpu_torch.ops.grid import bilinear_sampler, coords_grid, widen
 
 
 def flow_to_warp(flow: torch.Tensor) -> torch.Tensor:
@@ -18,10 +18,11 @@ def flow_to_warp(flow: torch.Tensor) -> torch.Tensor:
 
     The coords are fp32 whatever flow's dtype: a bf16 grid would round
     absolute positions (4 px apart at x ~ 1024); the flow values round once,
-    the positions must not.
+    the positions must not. A float64 flow keeps float64 coords.
     """
     N, H, W, _ = flow.shape
-    return coords_grid(N, H, W, device=flow.device) + flow.float()
+    flow = widen(flow)
+    return coords_grid(N, H, W, device=flow.device, dtype=flow.dtype) + flow
 
 
 def backward_warp(img: torch.Tensor, flow: torch.Tensor, padding: str = "zeros") -> torch.Tensor:
@@ -43,8 +44,9 @@ def warp_lfn3(x: torch.Tensor, flow: torch.Tensor, div_flow: float = 1.0) -> tor
     on it.
     """
     N, H, W, _ = x.shape
-    inv = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(div_flow, dtype=torch.float32)
-    coords = coords_grid(N, H, W, device=x.device) + flow.float() * inv
+    flow = widen(flow)
+    inv = torch.tensor(1.0, dtype=flow.dtype) / torch.tensor(div_flow, dtype=flow.dtype)
+    coords = coords_grid(N, H, W, device=x.device, dtype=flow.dtype) + flow * inv
     warped = bilinear_sampler(x, coords)
     px, py = coords[..., 0], coords[..., 1]
     mask = (px >= 0) & (px <= W - 1) & (py >= 0) & (py <= H - 1)

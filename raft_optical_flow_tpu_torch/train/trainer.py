@@ -68,7 +68,11 @@ def linear_onecycle_schedule(
 
 class AdamW(torch.optim.Optimizer):
     """`optax.chain(clip_by_global_norm(clip), adamw(schedule, b1, b2, eps,
-    weight_decay))` as a torch optimizer over one parameter group.
+    weight_decay))` as a torch optimizer over one parameter group; with
+    `decoupled=False`, `optax.chain(clip_by_global_norm(clip),
+    add_decayed_weights(weight_decay), adam(schedule, b1, b2, eps))`: the
+    L2 term weight_decay * param joins the clipped gradient before the
+    moments (torch's `Adam(weight_decay=...)`), and no decay follows them.
 
     `step()` reads the parameters' `.grad` (a missing one counts as zeros, as
     optax sees a zero gradient), leaves them unchanged, updates the
@@ -79,9 +83,9 @@ class AdamW(torch.optim.Optimizer):
 
     def __init__(self, params: Iterable[torch.Tensor], schedule: Schedule, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-4,
-                 clip: float = 1.0):
+                 clip: float = 1.0, decoupled: bool = True):
         super().__init__(params, dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
-                                      clip=clip, count=0))
+                                      clip=clip, decoupled=decoupled, count=0))
         if len(self.param_groups) != 1:
             raise ValueError("AdamW clips by the global norm of one parameter group")
         self.schedule = schedule
@@ -99,6 +103,9 @@ class AdamW(torch.optim.Optimizer):
         grads = torch._foreach_mul(grads, scale)
 
         b1, b2, eps, wd = group["b1"], group["b2"], group["eps"], group["weight_decay"]
+        decoupled = group.get("decoupled", True)  # absent from older checkpoints
+        if not decoupled:
+            torch._foreach_add_(grads, params, alpha=wd)  # add_decayed_weights
         lr = self.schedule(group["count"])  # read before the count moves, as optax
         group["count"] += 1
         count = group["count"]
@@ -117,7 +124,8 @@ class AdamW(torch.optim.Optimizer):
         denom = torch._foreach_sqrt(nu_hat)
         torch._foreach_add_(denom, eps)
         updates = torch._foreach_div(mu_hat, denom)
-        torch._foreach_add_(updates, params, alpha=wd)  # decoupled weight decay
+        if decoupled:
+            torch._foreach_add_(updates, params, alpha=wd)
         torch._foreach_add_(params, updates, alpha=-lr)
         return norm
 

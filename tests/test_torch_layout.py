@@ -14,7 +14,7 @@ import os
 
 import pytest
 
-from raft_optical_flow_tpu_torch.cli import train_raft
+from raft_optical_flow_tpu_torch.cli import train_flow, train_raft
 from raft_optical_flow_tpu_torch.data.pipeline import prefetch_to_device
 from raft_optical_flow_tpu_torch.models import (
     RAFT,
@@ -26,6 +26,7 @@ from raft_optical_flow_tpu_torch.models import (
 )
 from raft_optical_flow_tpu_torch.ops.grid import coords_grid
 from raft_optical_flow_tpu_torch.train.trainer import RAFTTrainer, create_train_state
+from raft_optical_flow_tpu_torch.train.trainers import FlowTrainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "raft_optical_flow_tpu_torch")
@@ -59,7 +60,8 @@ def test_sources_found():
                 ("data", "synthetic.py"), ("train", "configs.py"), ("models", "liteflownet3.py"),
                 ("ops", "warp.py"), ("ops", "spatial_corr.py"), ("models", "simple_flow.py"),
                 ("models", "ifnet.py"), ("losses", "laploss.py"), ("losses", "unsupervised.py"),
-                ("losses", "simple_flow_loss.py")):
+                ("losses", "simple_flow_loss.py"), ("ops", "unflow_ops.py"), ("losses", "uflow.py"),
+                ("losses", "unflow.py"), ("train", "trainers.py"), ("cli", "train_flow.py")):
         assert os.path.join(PORT, *rel) in srcs
 
 
@@ -98,6 +100,7 @@ def test_entry_points_default_to_cuda():
 
 
 def test_training_entry_points_default_to_cuda():
-    for fn in (RAFTTrainer.__init__, create_train_state, prefetch_to_device):
+    for fn in (RAFTTrainer.__init__, create_train_state, prefetch_to_device, FlowTrainer.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert train_raft.parse_args(["--stage", "chairs"]).device == "cuda"
+    assert train_flow.parse_args(["--model", "ifnet"]).device == "cuda"

@@ -1,7 +1,8 @@
-"""S+PseudoReg LiteFlowNet3's loss and per-layer gradients in the port against
-`jax.value_and_grad`, at the golden's params; the check and its gates are
-those of tests/test_torch_lfn3_grad.py (S+PseudoReg has every S-only
-module)."""
+"""S+PseudoReg LiteFlowNet3's supervised train step in the port against the
+JAX package's, at the golden's params: `check_gradients` of
+tests/test_torch_lfn3_grad.py (`lfn3_train_step`: `multiscale_sequence_loss`
+through every S-only module), its loss, metrics, `grad_norm` and each
+layer's gradient."""
 
 from test_torch_lfn3_grad import check_gradients
 from torch_threads import one_torch_thread  # noqa: F401

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Profile one forward or training step of the PyTorch port on the GPU: RAFT-standard,
-SimpleFlowNet or IFNet.
+SimpleFlowNet, IFNet, or RAFT-small's UFlow training step.
 
     python3 tools/profile_port_raft.py [--batch 16] [--iters 32] [--dtype bf16]
     python3 tools/profile_port_raft.py --mode train [--batch 4] [--iters 12]
     python3 tools/profile_port_raft.py [--mode train] --alternate_corr [--remat]
     python3 tools/profile_port_raft.py --fused_gru [--alternate_corr]
     python3 tools/profile_port_raft.py --model simple_flow|ifnet [--mode train] [--dtype fp32]
+    python3 tools/profile_port_raft.py --model uflow [--batch 4] [--iters 4]
 
 `--mode serve` (default): the serving workload of `bench.py::main` (1024x436
 frames padded to 1024x440, test mode). `--mode train`: one training step of
@@ -19,7 +20,10 @@ training). `--model simple_flow` or `ifnet`: serving at 432x1024
 (`tools/bench_families.py`), batch 16 by default; training, the supervised
 loss of the JAX trainers (`simple_flow_loss`; IFNet's flow[..., 2:4]) and
 its backward at batch 8, 384x768 (`cli/train_flow.py`), no optimizer step.
-Seeded random weights and data. The
+`--model uflow`: one `FlowTrainer('raft_uflow_unsup')` step (fp32, batch 4,
+256x384, 4 iterations, `checkpoints/raft_small.npz`, the occlusion masks on;
+`tools/unsup_bootstrap_tpu.sh`'s round-5 crop), optimizer included.
+Seeded random weights (but RAFT-small's) and data. The
 call runs twice to warm up, then once under `torch.profiler`. Prints the
 device time by kernel (the 20 largest, then each of the port's), the time
 per group (the port's CUDA kernels, convolutions, matmuls, the rest), and
@@ -112,9 +116,22 @@ def _family_call(name, dtype, train, batch):
     return step
 
 
+def _uflow_call(batch, iters):
+    from raft_optical_flow_tpu_torch.train.trainers import FlowTrainer
+    from raft_optical_flow_tpu_torch.utils.weights import load_flax_checkpoint
+
+    restore = load_flax_checkpoint(os.path.join(REPO, "checkpoints", "raft_small.npz"))
+    trainer = FlowTrainer("raft_uflow_unsup", (256, 384), restore_variables=restore,
+                          step_kwargs=dict(iters=iters, occlusion_warmup_steps=0))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    frames = {k: torch.rand(batch, 256, 384, 3, device="cuda", generator=g) * 255.0
+              for k in ("image1", "image2")}
+    return lambda: trainer.train_step(frames)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("raft", "simple_flow", "ifnet"), default="raft")
+    ap.add_argument("--model", choices=("raft", "simple_flow", "ifnet", "uflow"), default="raft")
     ap.add_argument("--mode", choices=("serve", "train"), default="serve")
     ap.add_argument("--batch", type=int, default=None,
                     help="default 16 serving, 4 training (SimpleFlowNet and IFNet: 8)")
@@ -133,9 +150,13 @@ def main() -> int:
 
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     train = args.mode == "train"
-    batch = args.batch or ((8 if args.model != "raft" else 4) if train else 16)
-    iters = args.iters or (12 if train else 32)
-    if args.model == "raft":
+    if args.model == "uflow":
+        train, dtype, args.mode, args.dtype = True, torch.float32, "train", "fp32"
+    batch = args.batch or ((8 if args.model in ("simple_flow", "ifnet") else 4) if train else 16)
+    iters = args.iters or ((4 if args.model == "uflow" else 12) if train else 32)
+    if args.model == "uflow":
+        run = _uflow_call(batch, iters)
+    elif args.model == "raft":
         config = RAFTConfig(compute_dtype=dtype, alternate_corr=args.alternate_corr,
                             remat=args.remat, fused_gru=args.fused_gru)
         run = (_train_call if train else _serve_call)(config, batch, iters)
@@ -167,7 +188,8 @@ def main() -> int:
           f"iters={iters} "
           f"dtype={args.dtype} alternate_corr={args.alternate_corr} remat={args.remat} "
           f"fused_gru={args.fused_gru}: wall {wall_ms:.3f} ms (profiled), "
-          f"device {device_ms:.3f} ms, busy share {device_ms / wall_ms:.4f}")
+          f"device {device_ms:.3f} ms, busy share {device_ms / wall_ms:.4f}, "
+          f"{sum(k[1] for k in kernels)} kernel launches")
     totals = {name: 0.0 for name, _ in GROUPS}
     totals["other (elementwise, norms, copies)"] = 0.0
     for ms, _, key in kernels:
