@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`raft_optical_flow_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py [--phases device,kernels,small,standard,train,ondemand,fused_gru,lfn3,
-                                    simple_flow,ifnet,flow_train,timing]
+                                    simple_flow,ifnet,flow_train,data_eval,timing]
 
 Phases (each prints one line when it ends; any failure raises and the exit
 code is not 0):
@@ -124,6 +124,27 @@ code is not 0):
             and UnFlow's splat twice bit for bit and within 1e-5 of the CPU;
             `cli/train_flow.py` for two synthetic steps, its weights file
             reloaded;
+  data_eval the data layer and the inference drivers, from files on disk: the
+            native data library built (g++); FlyingChairs (12 pairs at
+            384x512, .ppm + .flo, chairs_split.txt 10/2), Sintel (ambush_2
+            and market_2, 3 frames, clean and final, 436x1024) and KITTI
+            (three real frame sizes, 16-bit flow PNGs, about half the pixels
+            valid) written by the port's writers from the golden pair (each
+            frame the next one warped by a smooth seeded flow, so the flow
+            is known) and read back bit for bit; `cli/train_raft.py --stage
+            chairs --data_root` (RAFT-standard fp32, BN training, seeded
+            weights, batch 10, 368x496) for 3 steps with `--validation
+            chairs` firing once: finite losses, K1 and K3 48 launches a step,
+            the validation's K1 and K2, ms/step, peak memory, and
+            FlowDataLoader's pairs/s (batch 10, 4 workers) beside the
+            step's; RAFT-small fp32 (checkpoint) through `cli/evaluate.py`
+            on Sintel (32 iterations), KITTI (24; one 384x1280 bucket) and
+            Chairs (24), each run again through the plain lookup under
+            cudnn.deterministic: every pair's flows bit for bit, metrics
+            equal, K1 and K2 `iters` launches a pair, EPE and ms/pair
+            reported; the Sintel submission with warm start and the KITTI
+            submission read back; `cli/demo.py` (RAFT-small, LiteFlowNet3 at
+            the goldens' params) on the Sintel scene, PNGs read back;
   timing    K1, K2, K4, K7 and K8 at the batch-16 serving shapes, K3, K5 and K6 at
             the batch-4 training shapes, each first held against its plain
             version on the inputs it is timed on: kernel, plain version, a
@@ -175,7 +196,7 @@ import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "kernels", "small", "standard", "train", "ondemand", "fused_gru", "lfn3",
-          "simple_flow", "ifnet", "flow_train", "timing")
+          "simple_flow", "ifnet", "flow_train", "data_eval", "timing")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16, dense tensor cores
@@ -2261,6 +2282,407 @@ def phase_flow_train(state):
     res["seconds"] = time.perf_counter() - t0
     state["flow_train"] = res
     log(f"phase flow_train: ok in {res['seconds']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# the data layer and the inference drivers (plain host code around K1-K3)
+
+CHAIRS_HW = (384, 512)
+SINTEL_HW = (436, 1024)
+KITTI_HWS = ((375, 1242), (370, 1224), (376, 1241))  # three of KITTI 2015's frame sizes
+KITTI_BUCKET = (384, 1280)  # all three, padded to multiples of 64
+SINTEL_SCENES = ("ambush_2", "market_2")
+CHAIRS_CROP = (368, 496)
+DATA_EVAL_DIR = os.path.join(REPO, "raft_optical_flow_tpu_torch", "_build", "data_eval")
+
+
+@contextlib.contextmanager
+def _patched(owner, name, make):
+    """owner.name replaced by make(original) for the block, then restored."""
+    original = getattr(owner, name)
+    setattr(owner, name, make(original))
+    try:
+        yield
+    finally:
+        setattr(owner, name, original)
+
+
+def _base_frames():
+    """The RAFT-small golden's two real 192x320 frames, uint8."""
+    g = np.load(os.path.join(REPO, "tests", "goldens", "raft_small.npz"))
+    return [np.clip(np.rint(g[k]), 0, 255).astype(np.uint8) for k in ("image1", "image2")]
+
+
+def _warped_sequence(base, hw, n, seed, max_flow=6.0):
+    """n frames at hw ending in `base` resized to hw, each the next one warped
+    by a smooth seeded flow g_i (`data/synthetic.py`'s construction: frame i
+    samples frame i+1 at grid + g_i, so the flow from frame i to frame i+1 is
+    g_i). Returns (frames uint8 [hw, 3], flows float32 [hw, 2])."""
+    from raft_optical_flow_tpu_torch.data.cv import resize_linear
+    from raft_optical_flow_tpu_torch.data.synthetic import _bilinear_gather, _smooth_flow
+
+    r = np.random.RandomState(seed)
+    H, W = hw
+    frame = resize_linear(base, W / base.shape[1], H / base.shape[0]).astype(np.float32)
+    gy, gx = np.mgrid[0:H, 0:W].astype(np.float32)
+    frames, flows = [frame], []
+    for _ in range(n - 1):
+        g = _smooth_flow(r, H, W, max_flow)
+        frames.insert(0, _bilinear_gather(frames[0], np.stack([gx + g[..., 0], gy + g[..., 1]], -1)))
+        flows.insert(0, g)
+    return [np.clip(np.rint(f), 0, 255).astype(np.uint8) for f in frames], flows
+
+
+def _write_trees(root):
+    """FlyingChairs (12 pairs at 384x512, .ppm + .flo, chairs_split.txt: 10
+    training, 2 validation), Sintel (training/{clean,final}/<scene>/
+    frame_000{1..3}.png and flow/<scene>/*.flo at 436x1024; final = clean
+    plus seeded noise) and KITTI (training/image_2/*_1{0,1}.png and 16-bit
+    flow_occ/*_10.png at three real sizes, about half the pixels valid),
+    written by the port's writers and read back bit for bit. Returns
+    ({name: root}, files, seconds to write)."""
+    from raft_optical_flow_tpu_torch.data import frame_utils as fu
+
+    t0 = time.perf_counter()
+    written = {}  # path -> (reader, the array a reader must return)
+
+    def put(path, arr, writer, reader, expect=None):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        writer(path, arr)
+        written[path] = (reader, arr if expect is None else expect)
+
+    base = _base_frames()
+    chairs = os.path.join(root, "FlyingChairs_release", "data")
+    for i in range(12):
+        (f1, f2), (g,) = _warped_sequence(base[i % 2], CHAIRS_HW, 2, seed=i)
+        put(os.path.join(chairs, f"{i:05d}_img1.ppm"), f1, fu.write_ppm, fu.read_ppm)
+        put(os.path.join(chairs, f"{i:05d}_img2.ppm"), f2, fu.write_ppm, fu.read_ppm)
+        put(os.path.join(chairs, f"{i:05d}_flow.flo"), g, fu.write_flow, fu.read_flow)
+    np.savetxt(os.path.join(root, "FlyingChairs_release", "chairs_split.txt"),
+               np.array([1] * 10 + [2] * 2), fmt="%d")
+    sintel = os.path.join(root, "Sintel")
+    for s, scene in enumerate(SINTEL_SCENES):
+        frames, flows = _warped_sequence(base[s], SINTEL_HW, 3, seed=100 + s)
+        noise = np.random.RandomState(110 + s)
+        for i, f in enumerate(frames):
+            final = np.clip(f.astype(np.int32) + noise.randint(-4, 5, f.shape), 0, 255)
+            for dstype, img in (("clean", f), ("final", final.astype(np.uint8))):
+                put(os.path.join(sintel, "training", dstype, scene, f"frame_{i + 1:04d}.png"), img,
+                    fu.write_png, fu.read_png)
+        for i, g in enumerate(flows):
+            put(os.path.join(sintel, "training", "flow", scene, f"frame_{i + 1:04d}.flo"), g,
+                fu.write_flow, fu.read_flow)
+    kitti = os.path.join(root, "KITTI")
+    for i, hw in enumerate(KITTI_HWS):
+        (f1, f2), (g,) = _warped_sequence(base[i % 2], hw, 2, seed=200 + i)
+        put(os.path.join(kitti, "training", "image_2", f"{i:06d}_10.png"), f1, fu.write_png, fu.read_png)
+        put(os.path.join(kitti, "training", "image_2", f"{i:06d}_11.png"), f2, fu.write_png, fu.read_png)
+        valid = np.random.RandomState(210 + i).uniform(0, 1, hw) > 0.5
+        raster = np.concatenate([64.0 * g + 2 ** 15, valid[..., None]], -1).astype(np.uint16)
+        put(os.path.join(kitti, "training", "flow_occ", f"{i:06d}_10.png"), g,
+            lambda p, a, v=valid: fu.write_flow_kitti(p, a, v), fu.read_png, raster)
+    write_s = time.perf_counter() - t0
+    for path, (reader, expect) in written.items():
+        got = reader(path)
+        if got.dtype != expect.dtype or not np.array_equal(got, expect):
+            raise AssertionError(f"data_eval: {path} does not read back as written")
+    return {"chairs": chairs, "sintel": sintel, "kitti": kitti}, len(written), write_s
+
+
+def _loader_rate(chairs_root, batches=4):
+    """Pairs/s of FlowDataLoader over the chairs stage (batch 10, 4 workers,
+    368x496 crops), from a cold start to the end of `batches` batches."""
+    from raft_optical_flow_tpu_torch.data.datasets import fetch_dataset
+    from raft_optical_flow_tpu_torch.data.pipeline import FlowDataLoader
+
+    loader = FlowDataLoader(fetch_dataset("chairs", CHAIRS_CROP, roots={"chairs": chairs_root}),
+                            batch_size=10, num_workers=4, seed=1234)
+    it = loader.epochs()
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        b = next(it)
+    secs = time.perf_counter() - t0
+    it.close()
+    if b["image1"].shape != (10, *CHAIRS_CROP, 3) or not np.isfinite(b["flow"]).all():
+        raise AssertionError("data_eval: the chairs loader's batch is malformed")
+    return 10 * batches / secs
+
+
+def _chairs_stage(chairs_root, ckdir):
+    """`cli/train_raft.main --stage chairs --data_root <tree>` for 3 steps
+    (RAFT-standard fp32, BatchNorm training, seeded weights, batch 10,
+    368x496), `--validation chairs` firing after step 3: each step timed on
+    its own (host clock around a synchronize) with its launches, and the
+    validation pass's launches."""
+    from raft_optical_flow_tpu_torch.cli import evaluate as cli_eval
+    from raft_optical_flow_tpu_torch.cli import train_raft
+    from raft_optical_flow_tpu_torch.train.trainer import RAFTTrainer
+
+    steps, vals = [], []
+
+    def timed_step(step):
+        def run(self, batch):
+            torch.cuda.synchronize()
+            reset_all()
+            t0 = time.perf_counter()
+            m = step(self, batch)
+            torch.cuda.synchronize()
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3, "start": t0,
+                          "launches": launch_counts(), "loss": float(m["loss"])})
+            return m
+        return run
+
+    def counted_validation(make):
+        def build(*a, **k):
+            val_fn = make(*a, **k)
+
+            def run(model):
+                torch.cuda.synchronize()
+                reset_all()
+                res = val_fn(model)
+                torch.cuda.synchronize()
+                vals.append({"results": res, "launches": launch_counts()})
+                return res
+            return run
+        return build
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _patched(RAFTTrainer, "train_step", timed_step), \
+            _patched(cli_eval, "make_validation_fn", counted_validation):
+        trainer = train_raft.main([
+            "--name", "chairs_smoke", "--stage", "chairs", "--data_root", chairs_root,
+            "--image_size", *map(str, CHAIRS_CROP), "--batch_size", "10", "--num_steps", "3",
+            "--validation", "chairs", "--val_freq", "3", "--checkpoint_dir", ckdir])
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    iters = trainer.stage.iters
+    for s in steps:
+        expect_launches(s["launches"], {"corr_lookup_level": 4 * iters,
+                                        "corr_lookup_level_bwd": 4 * iters}, "chairs-stage step")
+    if len(steps) != 3 or len(vals) != 1 or not all(np.isfinite(s["loss"]) for s in steps):
+        raise AssertionError(f"chairs stage: {len(steps)} steps, {len(vals)} validations, "
+                             f"losses {[s['loss'] for s in steps]}")
+    n_val = 2
+    expect_launches(vals[0]["launches"], {"corr_lookup_level": n_val * iters,
+                                          "corr_lookup_coarse_fused": n_val * iters},
+                    "chairs validation")
+    ms = [s["ms"] for s in steps]
+    gaps = [(b["start"] - a["start"]) * 1e3 for a, b in zip(steps, steps[1:])]
+    return {"ms": ms, "ms_steps_2_3": ms[1:], "ms_between_starts": gaps, "peak_gib": peak,
+            "losses": [s["loss"] for s in steps], "launches_per_step": steps[-1]["launches"],
+            "validation": vals[0]["results"], "validation_launches": vals[0]["launches"],
+            "seconds": secs, "pairs_per_s": 10e3 / float(np.mean(ms[1:])), "iters": iters}
+
+
+def _recording(fwd, rec):
+    """fwd with each call timed (host clock around a synchronize), its
+    launches counted from 0, and its inputs' shape and outputs kept."""
+    def run(image1, image2, flow_init=None):
+        torch.cuda.synchronize()
+        reset_all()
+        t0 = time.perf_counter()
+        low, up = fwd(image1, image2, flow_init)
+        torch.cuda.synchronize()
+        rec.append({"ms": (time.perf_counter() - t0) * 1e3, "launches": launch_counts(),
+                    "shape": tuple(image1.shape), "warm": flow_init is not None,
+                    "low": low.clone(), "up": up.clone()})
+        return low, up
+
+    run.device = fwd.device
+    return run
+
+
+def _validators(roots, sd):
+    """Each validator at full size on the card, RAFT-small fp32 from the
+    checkpoint, through `cli/evaluate.main` (K1 and K2), then again through
+    the plain lookup (`corr_impl='plain'`) from the same weights, both under
+    cudnn.deterministic: flows of every pair bit for bit, metrics equal,
+    K1 and K2 `iters` launches per pair."""
+    from raft_optical_flow_tpu_torch.cli import evaluate as cli_eval
+    from raft_optical_flow_tpu_torch.data import datasets as D
+    from raft_optical_flow_tpu_torch.eval import evaluate as E
+    from raft_optical_flow_tpu_torch.models import RAFTConfig
+
+    ckpt = os.path.join(REPO, "checkpoints", "raft_small.npz")
+    samples = cli_eval._eval_samples
+    out = {}
+    for name, iters in (("sintel", 32), ("kitti", 24), ("chairs", 24)):
+        rec, rec_p = [], []
+        with deterministic(algorithms=False):
+            with _patched(E, "make_raft_forward",
+                          lambda make: lambda *a, **k: _recording(make(*a, **k), rec)):
+                res = cli_eval.main(["--model", ckpt, "--small", "--iters", str(iters),
+                                     "--dataset", name, f"--{name}_root", roots[name]])
+            fwd = _recording(E.make_raft_forward(RAFTConfig(small=True, corr_impl="plain"), sd,
+                                                 iters), rec_p)
+            if name == "sintel":
+                res_p = {}
+                for dstype in ("clean", "final"):
+                    ds = D.MpiSintelVal(None, root=roots[name], dstype=dstype)
+                    res_p.update(E.validate_sintel(fwd, samples(ds), dstype))
+            elif name == "kitti":
+                res_p = E.validate_kitti(fwd, samples(D.KITTI(None, root=roots[name])))
+            else:
+                res_p = E.validate_chairs(
+                    fwd, samples(D.FlyingChairs(None, "validation", root=roots[name])))
+        for r in rec:
+            expect_launches(r["launches"], {"corr_lookup_level": iters,
+                                            "corr_lookup_coarse_fused": iters}, f"{name} validator")
+        for r in rec_p:
+            expect_launches(r["launches"], {}, f"{name} validator, plain lookup")
+        equal = len(rec) == len(rec_p) and all(
+            torch.equal(a["up"], b["up"]) and torch.equal(a["low"], b["low"])
+            for a, b in zip(rec, rec_p))
+        shapes = sorted({r["shape"] for r in rec})
+        ms = [r["ms"] for r in rec]
+        out[name] = {"results": res, "results_plain": res_p, "pairs": len(rec), "iters": iters,
+                     "flows_equal": equal, "shapes": shapes, "ms_per_pair": float(np.median(ms[1:])),
+                     "ms_readings": ms, "launches_per_pair": rec[0]["launches"]}
+        log(f"data_eval validate_{name}: {len(rec)} pairs at {shapes}, {iters} iterations, "
+            f"metrics {res}; plain lookup flows equal={equal}, metrics equal={res == res_p}; "
+            f"{out[name]['ms_per_pair']:.3f} ms/pair (median after the first; "
+            f"{[round(t, 3) for t in ms]}), launches per pair {rec[0]['launches']}")
+        if not (equal and res == res_p and all(np.isfinite(v) for v in res.values())):
+            raise AssertionError(f"data_eval: validate_{name} through K1/K2 is not the plain "
+                                 "lookup's, or not finite")
+        if name == "kitti" and shapes != [(1, *KITTI_BUCKET, 3)]:
+            raise AssertionError(f"data_eval: KITTI frames fall into {shapes}, not one "
+                                 f"{KITTI_BUCKET} bucket")
+    return out
+
+
+def _submissions(roots, sd, outdir):
+    """create_sintel_submission (warm start: flow_init through the model on
+    the card) and create_kitti_submission, every file read back: shapes of
+    the frames, values those written (.flo exactly, KITTI within 1/64 px)."""
+    from raft_optical_flow_tpu_torch.data import datasets as D
+    from raft_optical_flow_tpu_torch.data import frame_utils as fu
+    from raft_optical_flow_tpu_torch.eval import evaluate as E
+    from raft_optical_flow_tpu_torch.models import RAFTConfig
+    from raft_optical_flow_tpu_torch.ops.padding import InputPadder
+
+    rec = []
+    fwd = _recording(E.make_raft_forward(RAFTConfig(small=True), sd, 32), rec)
+    sintel = D.MpiSintel(None, split="training", root=roots["sintel"], dstype="clean", repeat=1)
+    by_seq = {}
+    for i in range(len(sintel)):
+        img1, img2, *_ = sintel.__getitem__(i)
+        scene, fid = sintel.extra_info[i]
+        by_seq.setdefault(scene, []).append((img1, img2, fid))
+    E.create_sintel_submission(fwd, list(by_seq.items()), os.path.join(outdir, "sintel"),
+                               warm_start=True)
+    checked, k = 0, 0
+    for scene, frames in by_seq.items():
+        for j, (img1, _, fid) in enumerate(frames):
+            r = rec[k]
+            k += 1
+            flow = fu.read_flow(os.path.join(outdir, "sintel", scene, f"frame{fid + 1:04d}.flo"))
+            want = InputPadder((1,) + img1.shape).unpad(r["up"])[0].cpu().numpy()
+            if r["warm"] != (j > 0) or flow.shape != img1.shape[:2] + (2,) \
+                    or not np.array_equal(flow, want):
+                raise AssertionError(f"data_eval: Sintel submission {scene} {fid} is not the flow")
+            checked += 1
+    kitti = D.KITTI(None, split="training", root=roots["kitti"])
+    frames = []
+    for i in range(len(kitti)):
+        img1, img2, *_ = kitti.__getitem__(i)
+        frames.append((img1, img2, kitti.extra_info[i][0]))
+    n_sintel = len(rec)
+    E.create_kitti_submission(fwd, frames, os.path.join(outdir, "kitti"))
+    worst = 0.0
+    for (img1, _, name), r in zip(frames, rec[n_sintel:]):
+        flow, valid = fu.read_flow_kitti(os.path.join(outdir, "kitti", name))
+        want = InputPadder((1,) + img1.shape, mode="kitti").unpad(r["up"])[0].cpu().numpy()
+        err = float(np.abs(flow - want).max())
+        worst = max(worst, err)
+        if flow.shape != img1.shape[:2] + (2,) or err >= 1 / 64 or valid.min() != 1.0:
+            raise AssertionError(f"data_eval: KITTI submission {name}: max|d| {err}")
+        checked += 1
+    for r in rec:
+        expect_launches(r["launches"], {"corr_lookup_level": 32, "corr_lookup_coarse_fused": 32},
+                        "submission")
+    log(f"data_eval submissions: Sintel {n_sintel} .flo (warm start on {sum(r['warm'] for r in rec)}"
+        f" frames) and KITTI {len(frames)} PNGs at "
+        f"{sorted({r['shape'] for r in rec[n_sintel:]})} read back; KITTI max|d| {worst!r} "
+        f"(< 1/64)")
+    return {"files": checked, "kitti_max_abs_err": worst,
+            "warm_frames": sum(r["warm"] for r in rec)}
+
+
+def _demos(sintel_root, outdir):
+    """cli/demo.main on the Sintel clean scene: RAFT-small (20 iterations,
+    K1 and K2 20 launches a pair) and LiteFlowNet3 at the goldens' params
+    (no port kernel); each PNG read back as (2 x 436, 1024, 3) uint8."""
+    from raft_optical_flow_tpu_torch.cli import demo
+    from raft_optical_flow_tpu_torch.data import frame_utils as fu
+
+    scene = os.path.join(sintel_root, "training", "clean", SINTEL_SCENES[0])
+    out = {}
+    for arch, model, extra, per_pair in (
+        ("raft", os.path.join(REPO, "checkpoints", "raft_small.npz"), ["--small"],
+         {"corr_lookup_level": 20, "corr_lookup_coarse_fused": 20}),
+        ("liteflownet3", os.path.join(REPO, "tests", "goldens", "lfn3_standard_params.npz"), [], {}),
+    ):
+        reset_all()
+        t0 = time.perf_counter()
+        paths = demo.main(["--model", model, "--arch", arch, "--iters", "20", "--path", scene,
+                           "--out", os.path.join(outdir, arch), *extra])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        expect_launches(launch_counts(), {k: v * len(paths) for k, v in per_pair.items()},
+                        f"demo {arch}")
+        shapes = [fu.read_png(p).shape for p in paths]
+        dtypes = {fu.read_png(p).dtype for p in paths}
+        log(f"data_eval demo {arch}: {len(paths)} PNGs {shapes} {dtypes} in {secs:.2f} s")
+        if len(paths) != 2 or shapes != [(2 * SINTEL_HW[0], SINTEL_HW[1], 3)] * 2 \
+                or dtypes != {np.dtype(np.uint8)}:
+            raise AssertionError(f"data_eval: demo {arch} wrote {shapes}")
+        out[arch] = {"pngs": len(paths), "seconds": secs}
+    return out
+
+
+def phase_data_eval(state):
+    import shutil
+
+    from raft_optical_flow_tpu_torch.data import native
+    from raft_optical_flow_tpu_torch.utils.weights import load_flax_npz
+
+    t0 = time.perf_counter()
+    shutil.rmtree(DATA_EVAL_DIR, ignore_errors=True)
+    res = {}
+    try:
+        tb = time.perf_counter()
+        lib = native.build()
+        native.get_lib()
+        res["native_build_s"] = time.perf_counter() - tb
+        log(f"data_eval: native data library {lib.name} ready in {res['native_build_s']:.2f} s")
+        roots, n_files, write_s = _write_trees(os.path.join(DATA_EVAL_DIR, "trees"))
+        res["files"], res["write_s"] = n_files, write_s
+        log(f"data_eval: wrote {n_files} files (Chairs 12 pairs at {CHAIRS_HW}, Sintel "
+            f"{len(SINTEL_SCENES)} scenes x 3 frames x clean/final at {SINTEL_HW}, KITTI at "
+            f"{KITTI_HWS}) in {write_s:.2f} s; each read back bit for bit")
+        reset_all()
+        res["chairs_stage"] = c = _chairs_stage(roots["chairs"], os.path.join(DATA_EVAL_DIR, "ck"))
+        res["loader_pairs_per_s"] = _loader_rate(roots["chairs"])
+        log(f"data_eval chairs stage (cli/train_raft, RAFT-standard fp32, BN training, batch 10, "
+            f"{CHAIRS_CROP[0]}x{CHAIRS_CROP[1]}, {c['iters']} iterations): step ms "
+            f"{[round(t, 3) for t in c['ms']]} (steps 2-3: {[round(t, 3) for t in c['ms_steps_2_3']]},"
+            f" {c['pairs_per_s']:.2f} pairs/s), between step starts "
+            f"{[round(t, 3) for t in c['ms_between_starts']]} ms, peak {c['peak_gib']:.2f} GiB, "
+            f"losses {c['losses']}, launches/step {c['launches_per_step']}; validation "
+            f"{c['validation']} with launches {c['validation_launches']}; the CLI took "
+            f"{c['seconds']:.2f} s; FlowDataLoader (batch 10, 4 workers) "
+            f"{res['loader_pairs_per_s']:.2f} pairs/s against the step's {c['pairs_per_s']:.2f}")
+        sd = load_flax_npz(os.path.join(REPO, "checkpoints", "raft_small.npz"))
+        res["validators"] = _validators(roots, sd)
+        res["submissions"] = _submissions(roots, sd, os.path.join(DATA_EVAL_DIR, "submissions"))
+        res["demo"] = _demos(roots["sintel"], os.path.join(DATA_EVAL_DIR, "demo"))
+    finally:
+        shutil.rmtree(DATA_EVAL_DIR, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    state["data_eval"] = res
+    log(f"phase data_eval: ok in {res['seconds']:.1f} s")
 
 
 def _bytes_needed(levels, coords_flat, radius, out_itemsize):

@@ -3,9 +3,13 @@
 
 Counterpart of the JAX package's `cli/train_flow.py`, with its flags, but
 `--device` (default cuda) in place of `--platform`; the multi-host
-`--dist_*` flags and dataset stages are not ported yet. `--synthetic`
-trains on random tensors (the reference's DummyDataset fallback). Example:
+`--dist_*` flags are not ported yet. The stage's dataset comes from
+`data/datasets.py::fetch_dataset` (its root overridden by `--data_root`),
+augmented and batched by the port's data layer; `--synthetic` trains on
+random tensors instead (the reference's DummyDataset fallback). Examples:
 
+  python -m raft_optical_flow_tpu_torch.cli.train_flow --model lfn3 --stage sintel \\
+      --data_root datasets/Sintel --num_steps 10000 --batch_size 8
   python -m raft_optical_flow_tpu_torch.cli.train_flow --model simple_flow \\
       --unsupervised --synthetic --num_steps 1000 --batch_size 8 --lr 1e-4
 """
@@ -41,7 +45,7 @@ def parse_args(argv=None):
     parser.add_argument("--model", required=True, choices=["lfn3", "lfn3s", "simple_flow", "ifnet"])
     parser.add_argument("--unsupervised", action="store_true")
     parser.add_argument("--stage", default="sintel",
-                        help="dataset stage: chairs | things | sintel | kitti (not ported yet)")
+                        help="dataset stage: chairs | things | sintel | kitti")
     parser.add_argument("--synthetic", action="store_true",
                         help="train on random tensors (DummyDataset fallback)")
     parser.add_argument("--num_steps", type=int, default=10000)
@@ -53,7 +57,7 @@ def parse_args(argv=None):
     parser.add_argument("--num_workers", type=int, default=4)
     parser.add_argument("--seed", type=int, default=1234)
     parser.add_argument("--data_root", default=None,
-                        help="override the stage dataset root (not ported yet)")
+                        help="override the stage dataset root")
     parser.add_argument("--restore_ckpt", default=None,
                         help="flax-layout .npz checkpoint to start from")
     parser.add_argument("--resume", action="store_true",
@@ -72,10 +76,6 @@ def main(argv=None):
     if (args.dist_coordinator, args.dist_num_processes, args.dist_process_id) != (None,) * 3:
         raise NotImplementedError(
             "--dist_* (multi-host) is not ported yet (ROADMAP.md Queue 1 item 16, parallel)")
-    if not args.synthetic or args.data_root is not None:
-        raise NotImplementedError(
-            f"--stage {args.stage} data and --data_root are not ported yet (ROADMAP.md "
-            "Queue 1 item 10, data layer); use --synthetic")
 
     from raft_optical_flow_tpu_torch.models.liteflownet3 import LFN3Config
     from raft_optical_flow_tpu_torch.train.trainers import FlowTrainer, OptimConfig
@@ -93,9 +93,19 @@ def main(argv=None):
     trainer = FlowTrainer(kind, image_size=image_size, model_config=model_config, optim=optim,
                           seed=args.seed, restore_variables=restore,
                           checkpoint_dir=args.checkpoint_dir, device=args.device)
-    print(f"Training {kind} on synthetic batches on {trainer.device}")
-    trainer.run(_synthetic_batches(args.batch_size, image_size, args.seed),
-                num_steps=args.num_steps, val_freq=args.val_freq, resume=args.resume)
+    if args.synthetic:
+        print(f"Training {kind} on synthetic batches on {trainer.device}")
+        data_iter = _synthetic_batches(args.batch_size, image_size, args.seed)
+    else:
+        from raft_optical_flow_tpu_torch.data.datasets import fetch_dataset
+        from raft_optical_flow_tpu_torch.data.pipeline import FlowDataLoader
+
+        roots = {args.stage: args.data_root} if args.data_root else None
+        dataset = fetch_dataset(args.stage, image_size, roots=roots)
+        print(f"Training {kind} with {len(dataset)} image pairs on {trainer.device}")
+        data_iter = FlowDataLoader(dataset, batch_size=args.batch_size,
+                                   num_workers=args.num_workers, seed=args.seed)
+    trainer.run(data_iter, num_steps=args.num_steps, val_freq=args.val_freq, resume=args.resume)
     return trainer
 
 

@@ -2,14 +2,17 @@
 
 Flags are those of the JAX package's `cli/train_raft.py`, without its
 multi-host `--dist_*` flags and `--platform`, plus `--device` (default cuda).
-Only `--synthetic` data runs in this port so far: warped pairs cropped from
-the repo's 192x320 golden frames, so `--image_size` is at most 168x296 in
-multiples of 8 (the stage crops, 368x496 and up, wait for the real datasets).
-Example:
+The stage's dataset comes from `data/datasets.py::fetch_dataset` (its root
+overridden by `--data_root`), augmented and batched by the port's data
+layer; `--validation chairs sintel kitti` runs the validators every
+`--val_freq` steps (the chairs root is `--data_root` when given).
+`--synthetic` trains on warped pairs cropped from the repo's 192x320 golden
+frames instead (`--image_size` at most 168x296). Example:
 
-  python -m raft_optical_flow_tpu_torch.cli.train_raft --name raft-synthetic \\
-      --stage chairs --synthetic --num_steps 1000 --batch_size 10 \\
-      --lr 4e-4 --image_size 168 296
+  python -m raft_optical_flow_tpu_torch.cli.train_raft --name raft-chairs \\
+      --stage chairs --data_root datasets/FlyingChairs_release/data \\
+      --validation chairs --num_steps 100000 --batch_size 10 --lr 4e-4 \\
+      --image_size 368 496
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ def parse_args(argv=None):
     parser.add_argument("--num_workers", type=int, default=4)
     parser.add_argument("--seed", type=int, default=1234)
     parser.add_argument("--data_root", default=None,
-                        help="override the stage dataset root (not ported yet)")
+                        help="override the stage dataset root")
     parser.add_argument("--synthetic", action="store_true",
                         help="train on warped-pair synthetic data (no dataset needed)")
     parser.add_argument("--resume", action="store_true",
@@ -60,16 +63,10 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if not args.synthetic or args.data_root is not None:
-        raise NotImplementedError(
-            f"--stage {args.stage} data and --data_root are not ported yet (ROADMAP.md "
-            "Queue 1 item 10, data layer); use --synthetic")
-    if args.validation:
-        raise NotImplementedError(
-            "--validation is not ported yet (ROADMAP.md Queue 1 item 7, validators)")
 
     import torch
 
+    from raft_optical_flow_tpu_torch.data.datasets import fetch_dataset
     from raft_optical_flow_tpu_torch.data.pipeline import FlowDataLoader
     from raft_optical_flow_tpu_torch.data.synthetic import SyntheticFlowDataset
     from raft_optical_flow_tpu_torch.models.raft import RAFTConfig
@@ -90,18 +87,29 @@ def main(argv=None):
         small=args.small, dropout=args.dropout, alternate_corr=args.alternate_corr,
         compute_dtype=torch.bfloat16 if args.mixed_precision else torch.float32,
     )
-    try:
-        dataset = SyntheticFlowDataset(crop=stage.image_size)
-    except ValueError as e:
-        raise ValueError(f"--image_size {' '.join(map(str, args.image_size))}: {e}; --synthetic crops the repo's "
-                         "192x320 golden frames, so the crop is at most 168x296") from None
+    if args.synthetic:
+        try:
+            dataset = SyntheticFlowDataset(crop=stage.image_size)
+        except ValueError as e:
+            raise ValueError(f"--image_size {' '.join(map(str, args.image_size))}: {e}; --synthetic "
+                             "crops the repo's 192x320 golden frames, so the crop is at most "
+                             "168x296") from None
+    else:
+        roots = {args.stage: args.data_root} if args.data_root else None
+        dataset = fetch_dataset(args.stage, stage.image_size, roots=roots)
     restore = load_flax_checkpoint(args.restore_ckpt) if args.restore_ckpt else None
     trainer = RAFTTrainer(stage, config=config, restore_variables=restore,
                           checkpoint_dir=args.checkpoint_dir, device=args.device)
     print(f"Training with {len(dataset)} image pairs on {trainer.device}")
     loader = FlowDataLoader(dataset, batch_size=args.batch_size,
                             num_workers=args.num_workers, seed=args.seed)
-    trainer.run(loader, num_steps=args.num_steps, resume=args.resume)
+    val_fn = None
+    if args.validation:
+        from raft_optical_flow_tpu_torch.cli.evaluate import make_validation_fn
+
+        val_fn = make_validation_fn(args.validation, config, args.iters, data_root=args.data_root)
+    trainer.run(loader, num_steps=args.num_steps, val_fn=val_fn, resume=args.resume)
+    return trainer
 
 
 if __name__ == "__main__":

@@ -1,0 +1,163 @@
+"""ctypes bindings for the port's native data library (`native/*.cpp`).
+
+Counterpart of `raft_optical_flow_tpu/data/native.py`, with a build of its
+own: the sources `native/flowdata.cpp` (the .flo, PPM and PFM decoders, the
+port's copy) and `native/png.cpp` (the PNG row un-filter) are compiled on
+first use by
+
+    g++ -O3 -shared -fPIC -std=c++17 -o _build/libflowdata_<hash>.so \\
+        native/flowdata.cpp native/png.cpp -lpthread
+
+into `raft_optical_flow_tpu_torch/_build/` (git-ignored), the file name
+keyed by a hash of the flags and sources, as `kernels/_build.py` keys the
+CUDA library; nothing is written into `native/`. No `-march=native`: the
+library does not depend on the host that built it. A failed build raises;
+there is no silent fallback. `frame_utils.py` keeps numpy decoders beside
+these as their plain versions (the tests' oracles).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import List, Optional
+
+import numpy as np
+
+NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
+SOURCES = ("flowdata.cpp", "png.cpp")
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((NATIVE_DIR / name).read_bytes())
+    return BUILD_DIR / f"libflowdata_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources if no library for their hash exists; return its path."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), *(str(NATIVE_DIR / s) for s in SOURCES),
+           "-lpthread"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed:\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: a concurrent process sees all or nothing
+    return lib
+
+
+def get_lib() -> ctypes.CDLL:
+    """The native library, built on first use and loaded once per process."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(str(build()))
+        c_char_pp = ctypes.POINTER(ctypes.c_char_p)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        f32p = ctypes.POINTER(ctypes.c_float)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        I32, I64 = ctypes.c_int32, ctypes.c_int64
+        for name, args in (
+            ("flo_dims", [ctypes.c_char_p, i32p, i32p]),
+            ("flo_read", [ctypes.c_char_p, f32p, I64]),
+            ("flo_read_batch", [c_char_pp, I32, f32p, I64, I32]),
+            ("ppm_dims", [ctypes.c_char_p, i32p, i32p]),
+            ("ppm_read", [ctypes.c_char_p, u8p, I64]),
+            ("pfm_dims", [ctypes.c_char_p, i32p, i32p, i32p]),
+            ("pfm_read", [ctypes.c_char_p, f32p, I64]),
+            ("png_unfilter", [u8p, I64, I64, I32]),
+        ):
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return _lib
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def read_flow_native(path: str) -> np.ndarray:
+    """Middlebury .flo -> [H, W, 2] float32."""
+    lib = get_lib()
+    w, h = ctypes.c_int32(), ctypes.c_int32()
+    if lib.flo_dims(path.encode(), ctypes.byref(w), ctypes.byref(h)) != 0:
+        raise ValueError(f"{path}: invalid .flo file")
+    out = np.empty((h.value, w.value, 2), np.float32)
+    rc = lib.flo_read(path.encode(), _ptr(out, ctypes.c_float), out.size)
+    if rc != 0:
+        raise ValueError(f"{path}: .flo read failed ({rc})")
+    return out
+
+
+def read_flow_batch_native(paths: List[str], num_threads: int = 4) -> np.ndarray:
+    """Decode same-size .flo files in parallel -> [N, H, W, 2]."""
+    lib = get_lib()
+    w, h = ctypes.c_int32(), ctypes.c_int32()
+    if lib.flo_dims(paths[0].encode(), ctypes.byref(w), ctypes.byref(h)) != 0:
+        raise ValueError(f"{paths[0]}: invalid .flo file")
+    n = len(paths)
+    out = np.empty((n, h.value, w.value, 2), np.float32)
+    arr = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
+    rc = lib.flo_read_batch(arr, n, _ptr(out, ctypes.c_float), out[0].size, num_threads)
+    if rc != 0:
+        raise ValueError(f".flo batch read failed ({rc})")
+    return out
+
+
+def read_ppm_native(path: str) -> np.ndarray:
+    """Binary PPM (P6, maxval 255) -> [H, W, 3] uint8."""
+    lib = get_lib()
+    w, h = ctypes.c_int32(), ctypes.c_int32()
+    if lib.ppm_dims(path.encode(), ctypes.byref(w), ctypes.byref(h)) != 0:
+        raise ValueError(f"{path}: invalid PPM file")
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    rc = lib.ppm_read(path.encode(), _ptr(out, ctypes.c_uint8), out.size)
+    if rc != 0:
+        raise ValueError(f"{path}: PPM read failed ({rc})")
+    return out
+
+
+def read_pfm_native(path: str) -> np.ndarray:
+    """PFM -> [H, W] or [H, W, 3] float32, top-down."""
+    lib = get_lib()
+    w, h, c = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
+    if lib.pfm_dims(path.encode(), ctypes.byref(w), ctypes.byref(h), ctypes.byref(c)) != 0:
+        raise ValueError(f"{path}: invalid PFM file")
+    shape = (h.value, w.value, 3) if c.value == 3 else (h.value, w.value)
+    out = np.empty(shape, np.float32)
+    rc = lib.pfm_read(path.encode(), _ptr(out, ctypes.c_float), out.size)
+    if rc != 0:
+        raise ValueError(f"{path}: PFM read failed ({rc})")
+    return out
+
+
+def png_unfilter_native(rows: np.ndarray, height: int, row_bytes: int, bpp: int) -> None:
+    """Undo PNG's row filters in place: `rows` is the inflated image data,
+    uint8, C-contiguous, height x (1 + row_bytes) (each row's filter-type
+    byte, then its bytes); bpp is the bytes per pixel (1 for depths below 8)."""
+    if rows.dtype != np.uint8 or not rows.flags.c_contiguous or not rows.flags.writeable:
+        raise ValueError("png_unfilter_native needs a writable C-contiguous uint8 array")
+    if rows.size < height * (row_bytes + 1):
+        raise ValueError(f"PNG data holds {rows.size} bytes, {height * (row_bytes + 1)} needed")
+    rc = get_lib().png_unfilter(_ptr(rows, ctypes.c_uint8), height, row_bytes, bpp)
+    if rc != 0:
+        raise ValueError(f"PNG un-filter failed ({rc}: unknown filter type or bpp {bpp})")

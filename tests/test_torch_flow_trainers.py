@@ -130,7 +130,9 @@ def test_unported_parts_are_refused(tmp_path):
         FlowTrainer("ifnet", (32, 48), mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 16"):
         _cli(tmp_path, "--dist_coordinator", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train_flow.main(["--model", "ifnet", "--device", "cpu"])
+    # the dataset stages are ported (data layer): a stage run reads its root
+    with pytest.raises(FileNotFoundError, match="no_such_root"):
+        train_flow.main(["--model", "ifnet", "--device", "cpu", "--data_root",
+                         str(tmp_path / "no_such_root")])
     with pytest.raises(ValueError, match="unknown model_kind"):
         FlowTrainer("raft", (32, 48), device="cpu")

@@ -2,7 +2,8 @@
 
 `raft_optical_flow_tpu_torch`, `chip_smoke.py` and
 `tools/profile_port_raft.py` import neither JAX, flax,
-optax, PIL nor the JAX package (the card's machine has no JAX); the kernels
+optax, PIL, cv2, grain nor the JAX package (the card's machine has none of
+them); the kernels
 are built by nvcc and bound through ctypes, never through
 `torch.utils.cpp_extension` or `torch.compile`; entry points default to the
 card.
@@ -14,8 +15,9 @@ import os
 
 import pytest
 
-from raft_optical_flow_tpu_torch.cli import train_flow, train_raft
+from raft_optical_flow_tpu_torch.cli import demo, evaluate, train_flow, train_raft
 from raft_optical_flow_tpu_torch.data.pipeline import prefetch_to_device
+from raft_optical_flow_tpu_torch.eval import make_lfn3_forward, make_raft_forward
 from raft_optical_flow_tpu_torch.models import (
     RAFT,
     IFNet,
@@ -30,7 +32,7 @@ from raft_optical_flow_tpu_torch.train.trainers import FlowTrainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "raft_optical_flow_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "PIL", "raft_optical_flow_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "PIL", "cv2", "grain", "raft_optical_flow_tpu")
 
 
 def _sources():
@@ -61,7 +63,10 @@ def test_sources_found():
                 ("ops", "warp.py"), ("ops", "spatial_corr.py"), ("models", "simple_flow.py"),
                 ("models", "ifnet.py"), ("losses", "laploss.py"), ("losses", "unsupervised.py"),
                 ("losses", "simple_flow_loss.py"), ("ops", "unflow_ops.py"), ("losses", "uflow.py"),
-                ("losses", "unflow.py"), ("train", "trainers.py"), ("cli", "train_flow.py")):
+                ("losses", "unflow.py"), ("train", "trainers.py"), ("cli", "train_flow.py"),
+                ("data", "native.py"), ("data", "frame_utils.py"), ("data", "cv.py"),
+                ("data", "augmentor.py"), ("data", "datasets.py"), ("utils", "flow_viz.py"),
+                ("eval", "evaluate.py"), ("cli", "evaluate.py"), ("cli", "demo.py")):
         assert os.path.join(PORT, *rel) in srcs
 
 
@@ -104,3 +109,10 @@ def test_training_entry_points_default_to_cuda():
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert train_raft.parse_args(["--stage", "chairs"]).device == "cuda"
     assert train_flow.parse_args(["--model", "ifnet"]).device == "cuda"
+
+
+def test_inference_entry_points_default_to_cuda():
+    for fn in (make_raft_forward, make_lfn3_forward):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert evaluate.parse_args(["--model", "m.npz"]).device == "cuda"
+    assert demo.parse_args(["--model", "m.npz"]).device == "cuda"
