@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`raft_optical_flow_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py [--phases device,kernels,small,standard,train,ondemand,fused_gru,lfn3,
-                                    simple_flow,ifnet,flow_train,data_eval,timing]
+                                    simple_flow,ifnet,flow_train,data_eval,utils,timing]
 
 Phases (each prints one line when it ends; any failure raises and the exit
 code is not 0):
@@ -145,6 +145,23 @@ code is not 0):
             reported; the Sintel submission with warm start and the KITTI
             submission read back; `cli/demo.py` (RAFT-small, LiteFlowNet3 at
             the goldens' params) on the Sintel scene, PNGs read back;
+  utils     the utils (`utils/`): RAFT-small (checkpoint) exported through
+            `torch.export` at the JAX defaults (1x440x1024, 20 iterations,
+            fp32), saved, loaded and run: flow equal to eager (torch.equal),
+            K1 and K2 20 launches each per exported call, ms/call of both;
+            LiteFlowNet3 (the goldens' params) exported at 1x384x1024 and
+            held equal to eager; reference-named .pth files (RAFT-small with
+            `module.` prefixes, LiteFlowNet3 in a Lightning wrapper) written
+            from the .npz files, converted, loaded strict=True, forwards bit
+            for bit; `grad_parity.run_all()` (K3 fp32 and bf16, K5/K6 fp32
+            and on bf16 fmaps), every entry within its bar; the host cost
+            of a K1 or K2 call through its custom op against the direct
+            wrapper; compare_models() (four families, 1x256x448) and
+            memory_analysis of RAFT-standard bf16 at batch 16, 1024x440;
+            InputPadder's pad holding nothing beyond its output, and
+            RAFT-standard bf16 batch 16 on its NHWC output against an NCHW-
+            backed view (in turns); TensorBoardWriter's scalars and flow
+            image read back with every CRC checked. Under 150 s;
   timing    K1, K2, K4, K7 and K8 at the batch-16 serving shapes, K3, K5 and K6 at
             the batch-4 training shapes, each first held against its plain
             version on the inputs it is timed on: kernel, plain version, a
@@ -194,9 +211,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from raft_optical_flow_tpu_torch.utils.grad_parity import VJP_TOL  # the VJP gates, one place
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "kernels", "small", "standard", "train", "ondemand", "fused_gru", "lfn3",
-          "simple_flow", "ifnet", "flow_train", "data_eval", "timing")
+          "simple_flow", "ifnet", "flow_train", "data_eval", "utils", "timing")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16, dense tensor cores
@@ -217,7 +236,6 @@ K6_TPU = "raft_optical_flow_tpu/kernels/corr_ondemand_pallas.py:266"  # _bwd_df2
 K7_SRC = "raft_optical_flow_tpu_torch/kernels/csrc/gru_fused.cu"
 K7_TPU = "raft_optical_flow_tpu/kernels/gru_fused.py:80"  # _gru_pass_kernel
 K8_TPU = "raft_optical_flow_tpu/kernels/corr_lookup.py:431"  # _fused_lookup_kernel
-VJP_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # utils/grad_parity.py's gates
 
 
 def log(msg: str) -> None:
@@ -1417,19 +1435,15 @@ FAMILY_TRAIN_B = 8
 
 
 def _median_ms(fn, n_timed=5):
-    """fn() once to warm up, then n_timed timed calls (host clock around a
-    synchronize): (the warm-up's output, median ms, every ms, peak GiB
-    since the warm-up began)."""
+    """fn() once to warm up, then n_timed timed calls, each between two CUDA
+    events after a synchronize (`utils/profiling.py::time_calls`): (the
+    warm-up's output, median ms, every ms, peak GiB since the warm-up
+    began)."""
+    from raft_optical_flow_tpu_torch.utils.profiling import time_calls
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    out = fn()
-    times = []
-    for _ in range(n_timed):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    times, out = time_calls(fn, num_reps=n_timed, warmup=1, device="cuda")
     return out, float(np.median(times)), [round(t, 3) for t in times], \
         torch.cuda.max_memory_allocated() / 2**30
 
@@ -1600,8 +1614,8 @@ def _lfn3_card_vs_cpu(goldens):
 
 def _lfn3_serving(goldens, n_timed=5):
     """Sintel-size serving at the goldens' params: ms/call (the median of
-    n_timed calls after one warm-up, host clock around a synchronize),
-    pairs/s and peak memory; bf16 against fp32 mean EPE on the same frames."""
+    n_timed calls after one warm-up, each between CUDA events after a
+    synchronize), pairs/s and peak memory; bf16 against fp32 mean EPE on the same frames."""
     H, W = LFN3_SERVE_HW
     runs = [(v, dt, B) for v in ("standard", "s") for dt in (torch.float32, torch.bfloat16)
             for B in (16, 1)]
@@ -2017,7 +2031,7 @@ def _flow_batch(B, H, W, seed, device="cuda"):
 def _flow_step_rows(n_timed=3):
     """Each kind at full width (families batch 8, 384x768; UFlow batch 4,
     256x384, 4 iterations): one FlowTrainer.train_step to warm up, then
-    n_timed timed (host clock around a synchronize), the median ms/step and
+    n_timed timed (CUDA events after a synchronize), the median ms/step and
     peak memory; every metric finite, grad_norm > 0, every step's launches
     counted from 0 (UFlow: `_uflow_launches` of K1 and K3, 64 each; the
     families none)."""
@@ -2683,6 +2697,295 @@ def phase_data_eval(state):
     res["seconds"] = time.perf_counter() - t0
     state["data_eval"] = res
     log(f"phase data_eval: ok in {res['seconds']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# the utils: export through K1/K2's custom ops, reference-checkpoint
+# conversion, gradient parity, profiling, TensorBoard logging
+
+UTILS_DIR = os.path.join(REPO, "raft_optical_flow_tpu_torch", "_build", "utils")
+EXPORT_ITERS = 20  # utils/export.py's defaults (the JAX package's): batch 1,
+EXPORT_RAFT_HW = (440, 1024)  # RAFT 440x1024 in test mode,
+EXPORT_LFN3_HW = (384, 1024)  # LiteFlowNet3 384x1024
+UTILS_PHASE_LIMIT_S = 150.0
+
+
+def _export_raft():
+    """RAFT-small (checkpoint) exported at the JAX defaults, saved, loaded
+    back and run on the card: its flow equal to the eager model's, K1 and
+    K2 EXPORT_ITERS launches each per exported call; ms per call of both."""
+    from raft_optical_flow_tpu_torch.models import RAFT, RAFTConfig
+    from raft_optical_flow_tpu_torch.utils.export import export_raft, load_exported
+    from raft_optical_flow_tpu_torch.utils.profiling import time_fn
+    from raft_optical_flow_tpu_torch.utils.weights import load_flax_npz
+
+    sd = load_flax_npz(os.path.join(REPO, "checkpoints", "raft_small.npz"))
+    path = os.path.join(UTILS_DIR, "raft_small.pt2")
+    t0 = time.perf_counter()
+    export_raft(sd, path, small=True)
+    t1 = time.perf_counter()
+    program = load_exported(path)
+    t2 = time.perf_counter()
+    eager = RAFT(RAFTConfig(small=True), device="cuda")
+    eager.load_state_dict(sd)
+    _, a, b = _serving_inputs(1, seed=21)
+    assert tuple(a.shape) == (1, *EXPORT_RAFT_HW, 3)
+    reset_all()
+    got = program(a, b)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    expect_launches(launches, {"corr_lookup_level": EXPORT_ITERS,
+                               "corr_lookup_coarse_fused": EXPORT_ITERS}, "exported RAFT-small")
+    want = eager(a, b, iters=EXPORT_ITERS)[1]
+    if got.shape != want.shape or not torch.equal(got, want):
+        d = float((got - want).abs().max()) if got.shape == want.shape else None
+        raise AssertionError(f"exported RAFT-small differs from eager: max|d|={d!r}")
+    ms_exp, _ = time_fn(program, a, b, num_reps=5, device="cuda")
+    ms_eager, _ = time_fn(lambda: eager(a, b, iters=EXPORT_ITERS)[1], num_reps=5, device="cuda")
+    res = {"export_s": t1 - t0, "load_s": t2 - t1, "bytes": os.path.getsize(path),
+           "launches": launches, "ms_exported": ms_exp, "ms_eager": ms_eager, "flow": got[0]}
+    log(f"utils export RAFT-small 1x{EXPORT_RAFT_HW[0]}x{EXPORT_RAFT_HW[1]}, {EXPORT_ITERS} "
+        f"iterations, fp32: exported in {res['export_s']:.2f} s ({res['bytes'] / 2**20:.1f} MiB "
+        f".pt2), loaded in {res['load_s']:.2f} s; flow equal to eager (torch.equal); launches "
+        f"per exported call {launches}; ms/call exported {ms_exp:.3f}, eager {ms_eager:.3f} "
+        f"(median of 5 after a warm-up, CUDA events)")
+    return res
+
+
+def _export_lfn3():
+    """LiteFlowNet3 (the goldens' params) exported at 1x384x1024, loaded back
+    and run: flows and confs equal to eager's, no port kernel launched."""
+    from raft_optical_flow_tpu_torch.models import LFN3Config, LiteFlowNet3
+    from raft_optical_flow_tpu_torch.utils.export import export_lfn3, load_exported
+    from raft_optical_flow_tpu_torch.utils.profiling import time_fn
+    from raft_optical_flow_tpu_torch.utils.weights import load_flax_npz
+
+    sd = load_flax_npz(os.path.join(REPO, "tests", "goldens", "lfn3_standard_params.npz"))
+    path = os.path.join(UTILS_DIR, "lfn3.pt2")
+    t0 = time.perf_counter()
+    export_lfn3(sd, path)
+    t1 = time.perf_counter()
+    program = load_exported(path)
+    t2 = time.perf_counter()
+    eager = LiteFlowNet3(LFN3Config(), device="cuda")
+    eager.load_state_dict(sd)
+    g = torch.Generator(device="cuda").manual_seed(22)
+    images = torch.rand(1, 2, *EXPORT_LFN3_HW, 3, device="cuda", generator=g)
+    reset_all()
+    flows, confs = program(images)
+    torch.cuda.synchronize()
+    expect_launches(launch_counts(), {}, "exported LiteFlowNet3")
+    want = eager(images)
+    if not (torch.equal(flows, want["flows"]) and torch.equal(confs, want["confs"])):
+        d = max(float((flows - want["flows"]).abs().max()),
+                float((confs - want["confs"]).abs().max()))
+        raise AssertionError(f"exported LiteFlowNet3 differs from eager: max|d|={d!r}")
+    ms_exp, _ = time_fn(program, images, num_reps=5, device="cuda")
+    ms_eager, _ = time_fn(lambda: eager(images)["flows"], num_reps=5, device="cuda")
+    res = {"export_s": t1 - t0, "load_s": t2 - t1, "ms_exported": ms_exp, "ms_eager": ms_eager}
+    log(f"utils export LiteFlowNet3 1x{EXPORT_LFN3_HW[0]}x{EXPORT_LFN3_HW[1]} fp32: exported in "
+        f"{res['export_s']:.2f} s, loaded in {res['load_s']:.2f} s; flows and confs equal to "
+        f"eager (torch.equal); ms/call exported {ms_exp:.3f}, eager {ms_eager:.3f}")
+    return res
+
+
+def _conversion():
+    """Reference-named checkpoints written from the .npz files (RAFT-small
+    with `module.` prefixes; LiteFlowNet3 in a Lightning wrapper with
+    `model.` prefixes), converted by `utils/torch_convert.py`, loaded
+    strict=True: forwards bit for bit with the .npz models'."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_reference_names import reference_state_dict
+
+    from raft_optical_flow_tpu_torch.models import RAFT, LFN3Config, LiteFlowNet3, RAFTConfig
+    from raft_optical_flow_tpu_torch.utils import torch_convert
+    from raft_optical_flow_tpu_torch.utils.weights import load_flax_checkpoint, load_flax_npz
+
+    out = {}
+    npz = os.path.join(REPO, "checkpoints", "raft_small.npz")
+    path = os.path.join(UTILS_DIR, "raft-small.pth")
+    torch.save({"module." + k: v
+                for k, v in reference_state_dict(load_flax_checkpoint(npz), raft=True).items()},
+               path)
+    g = np.load(os.path.join(REPO, "tests", "goldens", "raft_small.npz"))
+    a = torch.from_numpy(g["image1"]).float()[None].cuda()
+    b = torch.from_numpy(g["image2"]).float()[None].cuda()
+    flows = []
+    for sd in (torch_convert.convert_raft_checkpoint(path), load_flax_npz(npz)):
+        model = RAFT(RAFTConfig(small=True), device="cuda")
+        model.load_state_dict(sd, strict=True)
+        flows.append(model(a, b, iters=int(g["iters"]))[1])
+    out["raft_small"] = torch.equal(*flows)
+
+    npz = os.path.join(REPO, "tests", "goldens", "lfn3_standard_params.npz")
+    path = os.path.join(UTILS_DIR, "lfn3.ckpt")
+    sd_ref = reference_state_dict(load_flax_checkpoint(npz), raft=False)
+    torch.save({"epoch": 1, "state_dict": {"model." + k: v for k, v in sd_ref.items()}}, path)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    images = torch.rand(1, 2, *EXPORT_LFN3_HW, 3, device="cuda", generator=gen)
+    flows = []
+    for sd in (torch_convert.convert_lfn3_checkpoint(path), load_flax_npz(npz)):
+        model = LiteFlowNet3(LFN3Config(), device="cuda")
+        model.load_state_dict(sd, strict=True)
+        flows.append(model(images)["flows"])
+    out["lfn3_lightning"] = torch.equal(*flows)
+    log(f"utils conversion: reference-named .pth loaded strict=True, forward bit for bit with "
+        f"the .npz model: {out}")
+    if not all(out.values()):
+        raise AssertionError(f"a converted checkpoint's forward differs: {out}")
+    return out
+
+
+def _profiling(state):
+    """compare_models() at its defaults; memory_analysis of RAFT-standard
+    bf16 at batch 16, 1024x440, 32 iterations; InputPadder's pad copies
+    nothing beyond its output."""
+    from raft_optical_flow_tpu_torch.models import RAFT, RAFTConfig
+    from raft_optical_flow_tpu_torch.ops.padding import InputPadder
+    from raft_optical_flow_tpu_torch.utils import profiling
+
+    table = profiling.compare_models()
+    for name, row in table.items():
+        log(f"utils compare_models 1x256x448 fp32 [{state['smi']}] {name}: {json.dumps(row)}")
+    model = RAFT(RAFTConfig(small=False, compute_dtype=torch.bfloat16), device="cuda",
+                 generator=torch.Generator().manual_seed(0))
+    _, a, b = _serving_inputs(16, seed=24)
+    mem = profiling.memory_analysis(lambda x, y: model(x, y, iters=ITERS), a, b)
+    log(f"utils memory_analysis RAFT-standard bf16 16x440x1024, {ITERS} iterations "
+        f"[{state['smi']}]: {json.dumps(mem)}")
+    del a, b
+    frame = torch.rand(1, *SERVE_HW, 3, device="cuda")
+    pad = profiling.memory_analysis(InputPadder(frame.shape).pad, frame)
+    log(f"utils InputPadder.pad 1x{SERVE_HW[0]}x{SERVE_HW[1]}x3 fp32: {json.dumps(pad)}")
+    if pad["temp_mb"] > 0.01 * pad["output_mb"]:
+        raise AssertionError(f"InputPadder.pad held {pad['temp_mb']} MiB beyond its output")
+    return {"compare_models": table, "memory_raft_standard_bf16_bs16": mem, "pad": pad}
+
+
+def _dispatch_cost(n=500):
+    """Host µs per call of K1 and K2 at the batch-1 serving shapes (bf16,
+    radius 4, 1024x440: level 0 55x128, Q = 7040): the direct ctypes
+    wrapper against the custom op, in turns (direct, op, op, direct), each
+    n calls between two synchronizes."""
+    from raft_optical_flow_tpu_torch.kernels import corr_lookup as ck
+
+    h, w = EXPORT_RAFT_HW[0] // 8, EXPORT_RAFT_HW[1] // 8
+    pyr = [p.contiguous() for p in serving_pyramid(1, h, w, torch.bfloat16, seed=25)]
+    flat = serving_coords(1, h, w, seed=26).reshape(1, h * w, 2)
+    calls = {
+        "K1 direct": lambda: ck.corr_lookup_level(pyr[0], flat, 4, torch.bfloat16),
+        "K1 op": lambda: torch.ops.raft_port.corr_lookup_level(pyr[0], flat, 4, torch.bfloat16),
+        "K2 direct": lambda: ck.corr_lookup_coarse_fused(pyr[1:], flat, 4, torch.bfloat16),
+        "K2 op": lambda: torch.ops.raft_port.corr_lookup_coarse_fused(pyr[1:], flat, 4,
+                                                                      torch.bfloat16),
+    }
+    out = {}
+    for k in ("K1", "K2"):
+        direct, op = calls[f"{k} direct"], calls[f"{k} op"]
+        if not torch.equal(direct(), op()):
+            raise AssertionError(f"{k}: the op and the direct wrapper differ")
+        for name, fn in ((f"{k} direct", direct), (f"{k} op", op), (f"{k} op", op),
+                         (f"{k} direct", direct)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            out.setdefault(name, []).append((time.perf_counter() - t0) * 1e6 / n)
+    log(f"utils dispatch, host us per call at the batch-1 serving shapes (bf16, r=4, "
+        f"{n} calls between synchronizes; direct, op, op, direct): "
+        f"{ {k: [round(v, 2) for v in vs] for k, vs in out.items()} }")
+    return out
+
+
+def _pad_layout(state):
+    """RAFT-standard bf16 serving at batch 16 on InputPadder's output
+    (contiguous NHWC, so the convs see channels-last tensors) against the
+    same frames as an NHWC view of contiguous NCHW memory (what the pad
+    returned before it padded NHWC in place), in turns; each the median of
+    2 after a warm-up, and the two flows' EPE."""
+    from raft_optical_flow_tpu_torch.models import RAFT, RAFTConfig
+    from raft_optical_flow_tpu_torch.utils.profiling import time_fn
+
+    model = RAFT(RAFTConfig(small=False, compute_dtype=torch.bfloat16), device="cuda",
+                 generator=torch.Generator().manual_seed(0))
+    _, a, b = _serving_inputs(16, seed=16)
+    views = {"nhwc": (a, b),
+             "nchw_view": tuple(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+                                for x in (a, b))}
+    ms, flows = {}, {}
+    for name in ("nhwc", "nchw_view", "nchw_view", "nhwc"):
+        x, y = views[name]
+        t, flows[name] = time_fn(lambda: model(x, y, iters=ITERS)[1], num_reps=2, device="cuda")
+        ms.setdefault(name, []).append(t)
+    epe = float(torch.linalg.norm(flows["nhwc"] - flows["nchw_view"], dim=-1).mean())
+    log(f"utils pad layout, RAFT-standard bf16 16x440x1024 [{state['smi']}]: ms/call "
+        f"{ {k: [round(v, 3) for v in vs] for k, vs in ms.items()} } (median of 2 after a "
+        f"warm-up, in turns); EPE between the two {epe!r}")
+    if not epe < 0.02:
+        raise AssertionError("the two layouts disagree")
+    return {"ms": ms, "epe": epe}
+
+
+def _tensorboard(flow):
+    """Scalars and a flow image through TensorBoardWriter, read back: every
+    CRC, the tags, steps and values, the image's pixels."""
+    from raft_optical_flow_tpu_torch.utils import logging as tblog
+    from raft_optical_flow_tpu_torch.utils.flow_viz import flow_to_image
+
+    writer = tblog.TensorBoardWriter(os.path.join(UTILS_DIR, "tb"))
+    scalars = [("train/loss", 2.5, 0), ("train/epe", 1.25, 10), ("val/epe", 0.75, 100)]
+    for tag, value, step in scalars:
+        writer.add_scalar(tag, value, step)
+    image = flow_to_image(flow.float().cpu().numpy())
+    writer.add_flow_image("val/flow", flow.float().cpu().numpy(), 100)
+    writer.close()
+    events = tblog.read_event_file(writer.path)
+    got = [(v["tag"], v.get("simple_value"), e["step"])
+           for e in events for v in e.get("values", [])]
+    if events[0].get("file_version") != "brain.Event:2" or \
+            got != scalars + [("val/flow", None, 100)]:
+        raise AssertionError(f"event file read back as {got}")
+    img = events[-1]["values"][0]["image"]
+    if not np.array_equal(img["pixels"], image):
+        raise AssertionError("the event file's image differs from flow_to_image's")
+    log(f"utils TensorBoardWriter: {len(events)} records, every CRC checked, tags, steps and "
+        f"values read back, image {img['height']}x{img['width']} equal "
+        f"({os.path.getsize(writer.path)} bytes)")
+    return len(events)
+
+
+def phase_utils(state):
+    import shutil
+
+    from raft_optical_flow_tpu_torch.utils import grad_parity
+
+    t0 = time.perf_counter()
+    shutil.rmtree(UTILS_DIR, ignore_errors=True)
+    os.makedirs(UTILS_DIR)
+    res = {}
+    try:
+        reset_all()
+        res["export_raft"] = _export_raft()
+        res["export_lfn3"] = _export_lfn3()
+        res["conversion"] = _conversion()
+        reset_all()
+        res["grad_parity"] = gp = grad_parity.run_all()
+        log(f"utils grad_parity.run_all(): {json.dumps(gp)}; launches {launch_counts()}")
+        if not all(v["ok"] for v in gp.values()):
+            raise AssertionError(f"grad parity failed: {gp}")
+        res["dispatch_us"] = _dispatch_cost()
+        res["profiling"] = _profiling(state)
+        res["pad_layout"] = _pad_layout(state)
+        res["events"] = _tensorboard(res["export_raft"].pop("flow"))
+    finally:
+        shutil.rmtree(UTILS_DIR, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    state["utils"] = res
+    if res["seconds"] > UTILS_PHASE_LIMIT_S:
+        raise AssertionError(f"phase utils took {res['seconds']:.1f} s (limit "
+                             f"{UTILS_PHASE_LIMIT_S} s)")
+    log(f"phase utils: ok in {res['seconds']:.1f} s")
 
 
 def _bytes_needed(levels, coords_flat, radius, out_itemsize):

@@ -20,12 +20,24 @@ kernel or raises; for a CPU tensor it runs the plain version (K1, K2:
 `ops/corr.py::sample_corr_window`; K3: `corr_lookup_level_bwd_plain`; K8:
 `corr_pyramid_lookup_fused_plain`), which
 is also the kernel's oracle. Each wrapper counts its launches in `LAUNCHES`.
+
+K1 and K2 are also registered as `torch.library` custom ops,
+`raft_port::corr_lookup_level` and `raft_port::corr_lookup_coarse_fused`
+(their wrappers: on a CUDA tensor a launch or an error, on a CPU tensor the
+plain version; a fake implementation gives the output's shape and dtype),
+so that `torch.export` can carry them into an exported program: the ctypes
+calls on `data_ptr()` cannot be traced. `corr_pyramid_lookup_cuda` goes
+through the ops only while `torch.export` traces
+(`torch.compiler.is_exporting()`); eager calls keep the direct ctypes
+path, about 23 us (K1) and 33 us (K2) of host time a call cheaper
+(NVIDIA H100 80GB HBM3, 700.00 W; `chip_smoke.py` phase `utils`). The
+export is forward only: K3 is not the ops' backward.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -256,6 +268,34 @@ def corr_lookup_level_bwd(coords_l: torch.Tensor, g: torch.Tensor, Hl: int, Wl: 
     return out
 
 
+@torch.library.custom_op("raft_port::corr_lookup_level", mutates_args=())
+def corr_lookup_level_op(corr_l: torch.Tensor, coords_l: torch.Tensor, radius: int,
+                         out_dtype: torch.dtype) -> torch.Tensor:
+    """K1 as a custom op: `corr_lookup_level` (CUDA: a counted launch; CPU:
+    the plain version)."""
+    return corr_lookup_level(corr_l, coords_l, radius, out_dtype)
+
+
+@corr_lookup_level_op.register_fake
+def _(corr_l, coords_l, radius, out_dtype):
+    B, Q, _ = coords_l.shape
+    return coords_l.new_empty(B, Q, (2 * radius + 1) ** 2, dtype=out_dtype)
+
+
+@torch.library.custom_op("raft_port::corr_lookup_coarse_fused", mutates_args=())
+def corr_lookup_coarse_fused_op(levels: List[torch.Tensor], coords: torch.Tensor, radius: int,
+                                out_dtype: torch.dtype) -> torch.Tensor:
+    """K2 as a custom op: `corr_lookup_coarse_fused` (CUDA: a counted
+    launch; CPU: the plain version)."""
+    return corr_lookup_coarse_fused(levels, coords, radius, out_dtype)
+
+
+@corr_lookup_coarse_fused_op.register_fake
+def _(levels, coords, radius, out_dtype):
+    B, Q, _ = coords.shape
+    return coords.new_empty(B, Q, len(levels) * (2 * radius + 1) ** 2, dtype=out_dtype)
+
+
 class LookupLevel(torch.autograd.Function):
     """K1 with K3 as its backward: differentiable wrt the volume only.
 
@@ -299,16 +339,24 @@ def corr_pyramid_lookup_cuda(
     Returns [B, h, w, L*(2r+1)^2] out_dtype, levels concatenated coarse-last.
     """
     B, h, w, _ = coords.shape
-    if fuse_coarse and torch.is_grad_enabled() and any(c.requires_grad for c in pyramid):
+    grad = torch.is_grad_enabled() and any(c.requires_grad for c in pyramid)
+    if fuse_coarse and grad:
         raise ValueError("fuse_coarse is forward only (K2 has no backward); "
                          "run the lookup per level to differentiate it")
     flat = coords.reshape(B, h * w, 2).float().contiguous()
-    outs = [LookupLevel.apply(pyramid[0], flat, radius, out_dtype)]
+    if torch.compiler.is_exporting():
+        if grad:
+            raise ValueError("the exported lookup is forward only (K3 is not the ops' backward)")
+        level, coarse = torch.ops.raft_port.corr_lookup_level, \
+            torch.ops.raft_port.corr_lookup_coarse_fused
+    else:
+        level, coarse = LookupLevel.apply, corr_lookup_coarse_fused
+    outs = [level(pyramid[0], flat, radius, out_dtype)]
     if fuse_coarse and len(pyramid) > 2:
-        outs.append(corr_lookup_coarse_fused(pyramid[1:], flat, radius, out_dtype))
+        outs.append(coarse(list(pyramid[1:]), flat, radius, out_dtype))
     else:
         for lvl, c in enumerate(pyramid[1:], start=1):
-            outs.append(LookupLevel.apply(c, flat * (1.0 / 2**lvl), radius, out_dtype))
+            outs.append(level(c, flat * (1.0 / 2**lvl), radius, out_dtype))
     return torch.cat(outs, dim=-1).reshape(B, h, w, -1)
 
 

@@ -346,7 +346,11 @@ class LiteFlowNet3(nn.Module):
         scaler = InputScaler(images.shape, stride=cfg.output_stride)
         # frame 1 of every sample, then frame 2 of every sample
         x = scaler.fill(x.transpose(0, 1).reshape(2 * B, H, W, 3))
-        x = nchw(x).contiguous()
+        # a copy to NCHW, also when traced: the card's upsample returns
+        # channels-last, but its fake version (what torch.export traces)
+        # says NCHW, so a `.contiguous()` would leave the exported program
+        # and its convs running channels-last (one-ulp drift from eager)
+        x = nchw(x).clone(memory_format=torch.contiguous_format)
         feats = [(f[:B], f[B:]) for f in self.feature_net(x)]
         images_pyr = [nchw(resize_bilinear(nhwc(x), f1.shape[2:])).split(B)
                       for f1, _ in feats]

@@ -9,6 +9,9 @@ Counterpart of `raft_optical_flow_tpu/ops/corr.py`:
     k = a*(2r+1) + b samples offset (dx, dy) = (a-r, b-r): trained weights
     depend on this order.
 
+`all_pairs_correlation` and `build_corr_pyramid` are the reference's
+volume-then-pool route; the models build each level as one product against
+pooled fmap2 (`build_corr_pyramid_from_fmaps`), which equals it.
 `sample_corr_window` and `corr_pyramid_lookup` are the plain versions of the
 CUDA kernels in `kernels/corr_lookup.py`: the CPU path and the kernels' oracle.
 """
@@ -19,7 +22,21 @@ from typing import Sequence, Tuple
 
 import torch
 
-from raft_optical_flow_tpu_torch.ops.grid import widen
+from raft_optical_flow_tpu_torch.ops.grid import no_tf32, widen
+
+
+def all_pairs_correlation(fmap1: torch.Tensor, fmap2: torch.Tensor) -> torch.Tensor:
+    """corr[b, q, u, v] for all pairs: fmap1/fmap2 [B, H, W, C] -> fp32
+    [B, H*W, H, W]. One fp32 product with TF32 off (the JAX package's
+    Precision.HIGHEST), then times fl(1 / fl(sqrt(C))), as XLA compiles
+    the JAX package's division by the constant sqrt(C)."""
+    B, H, W, C = fmap1.shape
+    f1 = fmap1.reshape(B, H * W, C).float()
+    f2 = fmap2.reshape(B, H * W, C).float()
+    with no_tf32():
+        corr = torch.matmul(f1, f2.transpose(1, 2))
+    c = torch.sqrt(torch.tensor(float(C), dtype=torch.float32))
+    return (corr * (1.0 / c).to(corr.device)).reshape(B, H * W, H, W)
 
 
 def avg_pool2x2(x: torch.Tensor) -> torch.Tensor:
@@ -29,6 +46,15 @@ def avg_pool2x2(x: torch.Tensor) -> torch.Tensor:
     H2, W2 = H // 2, W // 2
     x = x[..., : 2 * H2, : 2 * W2].reshape(*lead, H2, 2, W2, 2)
     return x.mean(dim=(-3, -1))
+
+
+def build_corr_pyramid(corr: torch.Tensor, num_levels: int = 4) -> Tuple[torch.Tensor, ...]:
+    """Pyramid of [B, Q, Hl, Wl] volumes by 2x2 average pooling of the
+    target axes; level 0 is `corr` itself."""
+    pyramid = [corr]
+    for _ in range(num_levels - 1):
+        pyramid.append(avg_pool2x2(pyramid[-1]))
+    return tuple(pyramid)
 
 
 def build_corr_pyramid_from_fmaps(

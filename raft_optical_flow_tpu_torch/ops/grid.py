@@ -1,20 +1,35 @@
 """Coordinate grids, bilinear sampling and resizes.
 
 Counterpart of `raft_optical_flow_tpu/ops/grid.py` (`coords_grid`,
-`bilinear_sampler`, `resize_bilinear_align_corners`, `resize_bilinear`,
-`upflow8`), plus `resize_nearest`, the nearest resize of
-`jax.image.resize`, `abs_jax` and `clip_jax`, `jnp.abs` and `jnp.clip`
-with JAX's gradients where torch's differ, and `widen`, the fp32 (or
-float64) carry dtype. NHWC in and out. A tensor given as an NHWC view of a
-contiguous NCHW tensor (`x.permute(0, 2, 3, 1)`) goes through
-`bilinear_sampler` and `resize_bilinear` without a copy, and what they
-return is such a view again: the models call them from NCHW code.
+`bilinear_sampler` with its in-bounds mask, `grid_sample_nearest`,
+`resize_bilinear_align_corners`, `resize_bilinear`, `upflow8`, `upflow_n`),
+plus `resize_nearest`, the nearest resize of `jax.image.resize`, `abs_jax`
+and `clip_jax`, `jnp.abs` and `jnp.clip` with JAX's gradients where torch's
+differ, `widen`, the fp32 (or float64) carry dtype, and `no_tf32`. NHWC
+in and out. A tensor given as an NHWC view of a contiguous NCHW tensor
+(`x.permute(0, 2, 3, 1)`) goes through `bilinear_sampler` and
+`resize_bilinear` without a copy, and what they return is such a view
+again: the models call them from NCHW code.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """cuBLAS fp32 products in full fp32 inside the block (TF32 off), the
+    JAX package's Precision.HIGHEST; the old setting after it."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def coords_grid(batch: int, ht: int, wd: int, device="cuda",
@@ -78,15 +93,17 @@ def clip_jax(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
 
 
 def bilinear_sampler(img: torch.Tensor, coords: torch.Tensor,
-                     padding: str = "zeros") -> torch.Tensor:
+                     padding: str = "zeros", return_mask: bool = False):
     """Bilinear samples of img [N, H, W, C] at pixel coords [N, *S, 2] (x, y),
     torch `grid_sample(align_corners=True)` semantics: (0, 0) is the centre
     of the top-left pixel. Returns [N, *S, C]. `padding` "zeros": taps
     outside the image contribute zero; "border": x is clipped to [0, W-1]
     and y to [0, H-1] first (`clip_jax`, JAX's gradient at the bounds).
+    With `return_mask`, also the mask [N, *S] in img's dtype of positions
+    strictly inside the image, 0 < x < W-1 and 0 < y < H-1 (the reference's
+    open interval; after the clip under "border").
 
-    The JAX package's sampler (its in-bounds mask has no caller in either
-    package and is not ported). The taps and
+    The JAX package's sampler. The taps and
     weights are JAX's, in pixel coordinates: the 2x2 patch at the root
     clip(floor(p), 0, size-2), each tap weighted by the hat
     max(1 - |p - tap|, 0), which is zero for a tap the position is a pixel
@@ -127,7 +144,24 @@ def bilinear_sampler(img: torch.Tensor, coords: torch.Tensor,
 
         out = (tap(0) * (wy0 * wx0) + tap(1) * (wy0 * wx1)
                + tap(W) * (wy1 * wx0) + tap(W + 1) * (wy1 * wx1))
-    return out.reshape(N, C, *S).movedim(1, -1)
+    out = out.reshape(N, C, *S).movedim(1, -1)
+    if return_mask:
+        mask = (x > 0) & (x < W - 1) & (y > 0) & (y < H - 1)
+        return out, mask.to(img.dtype).reshape(N, *S)
+    return out
+
+
+def grid_sample_nearest(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """img [N, H, W, C] at the nearest pixel of coords [N, *S, 2] (x, y), the
+    position clamped into the image: [N, *S, C]. `torch.round` rounds half
+    to even, as `jnp.round` does (floor(x + 0.5) would not)."""
+    N, H, W, C = img.shape
+    S = coords.shape[1:-1]
+    # clamp in float before the int cast (a cast of a far out-of-range float is undefined)
+    xi = torch.round(coords[..., 0].reshape(N, -1)).clamp(0, W - 1).long()
+    yi = torch.round(coords[..., 1].reshape(N, -1)).clamp(0, H - 1).long()
+    idx = (yi * W + xi)[..., None].expand(N, xi.shape[1], C)
+    return torch.gather(img.reshape(N, H * W, C), 1, idx).reshape(N, *S, C)
 
 
 def _linspace_to(stop: float, num: int, device) -> torch.Tensor:
@@ -166,12 +200,8 @@ def _interp_axis_align_corners(x: torch.Tensor, out_size: int, axis: int) -> tor
     w = (pos - i0).to(x.dtype)
     cols = torch.arange(in_size, dtype=torch.float32, device=x.device)
     select = torch.cat([cols == i0[:, None], cols == i0[:, None] + 1]).to(x.dtype)
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with no_tf32():
         taps = torch.tensordot(select, x, dims=([1], [axis])).movedim(0, axis)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
     lo, hi = torch.split(taps, out_size, dim=axis)
     shape = [1] * x.dim()
     shape[axis] = out_size
@@ -190,6 +220,12 @@ def upflow8(flow: torch.Tensor) -> torch.Tensor:
     """8x align-corners bilinear upsample of [N, h, w, 2] flow, values x8."""
     _, h, w, _ = flow.shape
     return 8.0 * resize_bilinear_align_corners(flow, (8 * h, 8 * w))
+
+
+def upflow_n(flow: torch.Tensor, factor: int) -> torch.Tensor:
+    """factor-x align-corners bilinear upsample of [N, h, w, 2] flow, values x factor."""
+    _, h, w, _ = flow.shape
+    return float(factor) * resize_bilinear_align_corners(flow, (factor * h, factor * w))
 
 
 def resize_bilinear(img: torch.Tensor, out_hw) -> torch.Tensor:

@@ -8,11 +8,10 @@ Counterpart of `raft_optical_flow_tpu/ops/unflow_ops.py`. NHWC, flows
 The splats scatter-add bilinear weights. CUDA's `index_add_` adds floats
 with atomics in whatever order the threads arrive, so a float splat would
 differ from run to run on the card. `splat_sum` adds fixed-point integers
-instead: each weight rounded to a multiple of 2^-SPLAT_BITS, summed exactly
-as int64, then rounded once to the float dtype. Integer addition is
-associative, so the atomics' order cannot change the sum: the same bits on
-every run, on the card and on the CPU. The splats feed only thresholded or
-stopped-gradient masks, so they carry no gradient.
+instead (`ops/warp.py::fixed_point_sum`): each weight rounded to a multiple
+of 2^-SPLAT_BITS, summed exactly as int64, then rounded once to the float
+dtype: the same bits on every run, on the card and on the CPU. The splats
+feed only thresholded or stopped-gradient masks, so they carry no gradient.
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from raft_optical_flow_tpu_torch.ops.grid import coords_grid
-from raft_optical_flow_tpu_torch.ops.warp import backward_warp
+from raft_optical_flow_tpu_torch.ops.warp import backward_warp, fixed_point_sum
 
 #: Fraction bits of `splat_sum`'s fixed point: a weight's rounding error is
 #: at most 2^-41, and 2^63 leaves room for sums below 2^22 in one bin.
@@ -31,12 +30,7 @@ def splat_sum(index: torch.Tensor, weights: torch.Tensor, size: int) -> torch.Te
     """Per batch row b, the sum of weights[b] into `size` bins at index[b]
     ([B, Q] each, indices in [0, size)): [B, size] in weights' dtype, the
     exact sum of the weights rounded to multiples of 2^-SPLAT_BITS."""
-    B = index.shape[0]
-    rows = torch.arange(B, device=index.device)[:, None] * size
-    fixed = torch.round(weights.detach().double() * 2.0**SPLAT_BITS).long()
-    acc = torch.zeros(B * size, dtype=torch.int64, device=index.device)
-    acc.index_add_(0, (index + rows).reshape(-1), fixed.reshape(-1))
-    return (acc.double() * 2.0**-SPLAT_BITS).to(weights.dtype).reshape(B, size)
+    return fixed_point_sum(index, weights, size, SPLAT_BITS)
 
 
 @torch.no_grad()

@@ -2,7 +2,8 @@
 
 `raft_optical_flow_tpu_torch`, `chip_smoke.py` and
 `tools/profile_port_raft.py` import neither JAX, flax,
-optax, PIL, cv2, grain nor the JAX package (the card's machine has none of
+optax, PIL, cv2, grain, tensorboardX, tensorboard, matplotlib, protobuf
+(`google`) nor the JAX package (the card's machine has none of
 them); the kernels
 are built by nvcc and bound through ctypes, never through
 `torch.utils.cpp_extension` or `torch.compile`; entry points default to the
@@ -29,10 +30,12 @@ from raft_optical_flow_tpu_torch.models import (
 from raft_optical_flow_tpu_torch.ops.grid import coords_grid
 from raft_optical_flow_tpu_torch.train.trainer import RAFTTrainer, create_train_state
 from raft_optical_flow_tpu_torch.train.trainers import FlowTrainer
+from raft_optical_flow_tpu_torch.utils import export, grad_parity, profiling
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "raft_optical_flow_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "PIL", "cv2", "grain", "raft_optical_flow_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "PIL", "cv2", "grain", "raft_optical_flow_tpu",
+             "tensorboardX", "tensorboard", "matplotlib", "google")
 
 
 def _sources():
@@ -66,7 +69,10 @@ def test_sources_found():
                 ("losses", "unflow.py"), ("train", "trainers.py"), ("cli", "train_flow.py"),
                 ("data", "native.py"), ("data", "frame_utils.py"), ("data", "cv.py"),
                 ("data", "augmentor.py"), ("data", "datasets.py"), ("utils", "flow_viz.py"),
-                ("eval", "evaluate.py"), ("cli", "evaluate.py"), ("cli", "demo.py")):
+                ("eval", "evaluate.py"), ("cli", "evaluate.py"), ("cli", "demo.py"),
+                ("ops", "corr.py"), ("ops", "grid.py"), ("ops", "padding.py"),
+                ("utils", "torch_convert.py"), ("utils", "export.py"),
+                ("utils", "grad_parity.py"), ("utils", "profiling.py"), ("utils", "logging.py")):
         assert os.path.join(PORT, *rel) in srcs
 
 
@@ -116,3 +122,9 @@ def test_inference_entry_points_default_to_cuda():
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert evaluate.parse_args(["--model", "m.npz"]).device == "cuda"
     assert demo.parse_args(["--model", "m.npz"]).device == "cuda"
+
+
+def test_utils_entry_points_default_to_cuda():
+    for fn in (export.export_raft, export.export_lfn3, grad_parity.run_all,
+               profiling.compare_models):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
