@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`raft_optical_flow_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py [--phases device,kernels,small,standard,train,ondemand,fused_gru,lfn3,
-                                    simple_flow,ifnet,flow_train,data_eval,utils,timing]
+                                    simple_flow,ifnet,flow_train,data_eval,utils,parallel,timing]
 
 Phases (each prints one line when it ends; any failure raises and the exit
 code is not 0):
@@ -162,6 +162,29 @@ code is not 0):
             RAFT-standard bf16 batch 16 on its NHWC output against an NCHW-
             backed view (in turns); TensorBoardWriter's scalars and flow
             image read back with every CRC checked. Under 150 s;
+  parallel  data parallelism (`parallel/`), each check in fresh processes of
+            this script (`--parallel-worker`), started after phase device
+            has built the kernels, so this process holds no process group:
+            (a) the RAFT-standard chairs step (fp32, BatchNorm training,
+            batch 2, 368x496, 12 iterations, K1 and K3, cudnn.deterministic)
+            through `RAFTTrainer`'s mesh path on an NCCL group of one
+            process against the same step without a group: loss, metrics,
+            every gradient, parameter and buffer equal (torch.equal), 48
+            launches each of K1 and K3, and 5 more steps of each, in
+            turns, for their ms; (b) the same step at global batch 4 on two gloo processes
+            sharing the one card (CUDA tensors; NCCL refuses two ranks on
+            one device), 2 rows each, against one process at batch 4: the
+            ranks' parameters, buffers, metrics and generators equal,
+            metrics within rel 1e-5 + abs 1e-6, parameters within the JAX
+            package's CLI bound (max |d| < 1e-3, under 1% of the elements
+            off by more than 1e-6), BatchNorm running statistics within
+            1e-5; 5 more steps each for their ms (the ranks share the
+            card); (c) `spatial_sharded_ondemand_corr` on two gloo ranks: K4
+            on each rank's 28-row slab of a 56x128 fmap (C = 256, 4 levels,
+            radius 4; the serving fmap's 55 rows do not split in two and
+            must be refused), fp32 and bf16, on the frame's query grid, the
+            slabs gathered, equal (torch.equal) to one K4 call on the whole
+            frame, with K4's bf16 routes of both launches;
   timing    K1, K2, K4, K7 and K8 at the batch-16 serving shapes, K3, K5 and K6 at
             the batch-4 training shapes, each first held against its plain
             version on the inputs it is timed on: kernel, plain version, a
@@ -215,7 +238,7 @@ from raft_optical_flow_tpu_torch.utils.grad_parity import VJP_TOL  # the VJP gat
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "kernels", "small", "standard", "train", "ondemand", "fused_gru", "lfn3",
-          "simple_flow", "ifnet", "flow_train", "data_eval", "utils", "timing")
+          "simple_flow", "ifnet", "flow_train", "data_eval", "utils", "parallel", "timing")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16, dense tensor cores
@@ -2988,6 +3011,289 @@ def phase_utils(state):
     log(f"phase utils: ok in {res['seconds']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase parallel: data parallelism (`parallel/`), each check in fresh
+# processes started by this script (`--parallel-worker`), so that this
+# process holds no process group
+
+PARALLEL_DIR = os.path.join(REPO, "raft_optical_flow_tpu_torch", "_build", "parallel")
+PARALLEL_B = 2  # (a): the batch; (b): the rows of each of the two ranks
+PARALLEL_TIMED = 5  # steps timed after the compared one, (a) in turns
+SPATIAL_HW = (56, 128)  # fmap rows that split in two (the serving fmap's 55 do not)
+
+
+def _parallel_stage(batch_size):
+    """RAFT-standard fp32 at the chairs stage: BatchNorm training, 368x496,
+    12 iterations."""
+    from raft_optical_flow_tpu_torch.models import RAFTConfig
+    from raft_optical_flow_tpu_torch.train.configs import StageConfig
+
+    stage = StageConfig(name="parallel", stage="chairs", num_steps=1000, batch_size=batch_size,
+                        lr=4e-4, image_size=TRAIN_HW, freeze_bn=False, iters=TRAIN_ITERS)
+    return stage, RAFTConfig()
+
+
+def _trainer_step(trainer, batch):
+    """One train step of `trainer` from launch counts of 0: (metrics as
+    floats, launches, ms on the host clock around a synchronize)."""
+    torch.cuda.synchronize()
+    reset_all()
+    t0 = time.perf_counter()
+    metrics = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {k: float(v) for k, v in metrics.items()}, launch_counts(), ms
+
+
+def _trained(trainer):
+    """The trainer's model after its step, on the CPU: parameters, their
+    gradients and the buffers (BatchNorm statistics)."""
+    m = trainer.model
+    return {"params": {k: p.detach().cpu() for k, p in m.named_parameters()},
+            "grads": {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
+            "buffers": {k: b.detach().cpu() for k, b in m.named_buffers()}}
+
+
+def _worker_nccl1(port):
+    """(a) The chairs step at batch 2 without a process group, then through
+    the mesh path of an NCCL group of one process; the same weights (seed)
+    and batch. Then PARALLEL_TIMED more steps of each, in turns, for their
+    times."""
+    from raft_optical_flow_tpu_torch.parallel import distributed
+    from raft_optical_flow_tpu_torch.parallel.mesh import make_mesh
+    from raft_optical_flow_tpu_torch.train.trainer import RAFTTrainer
+
+    stage, cfg = _parallel_stage(PARALLEL_B)
+    batch = _train_batch(PARALLEL_B, seed=301)
+    out = {}
+    with deterministic(False):
+        plain = RAFTTrainer(stage, cfg, device="cuda")
+        out["plain"] = _trainer_step(plain, batch)
+        out["plain_state"] = _trained(plain)
+        if not distributed.initialize(f"127.0.0.1:{port}", 1, 0, device="cuda"):
+            raise AssertionError("parallel (a): no process group")
+        mesh = make_mesh()
+        if torch.distributed.get_backend(mesh.group("data")) != "nccl":
+            raise AssertionError("parallel (a): the data group is not NCCL")
+        grouped = RAFTTrainer(stage, cfg, mesh=mesh)
+        out["group"] = _trainer_step(grouped, batch)
+        out["group_state"] = _trained(grouped)
+        out["ms_plain"], out["ms_group"] = [], []
+        for _ in range(PARALLEL_TIMED):
+            out["ms_plain"].append(_trainer_step(plain, batch)[2])
+            out["ms_group"].append(_trainer_step(grouped, batch)[2])
+    return out
+
+
+def _worker_gloo2(world, rank, port):
+    """(b) The chairs step at global batch 4: rank `rank` of two gloo
+    processes on the one card (CUDA tensors), each on its 2 rows, or (world
+    1) one process on all 4 rows without a group; then PARALLEL_TIMED more
+    steps for their times (the two ranks share the card)."""
+    from raft_optical_flow_tpu_torch.parallel import distributed
+    from raft_optical_flow_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from raft_optical_flow_tpu_torch.train.trainer import RAFTTrainer
+
+    stage, cfg = _parallel_stage(2 * PARALLEL_B)
+    batch = _train_batch(2 * PARALLEL_B, seed=302)
+    mesh = None
+    if world > 1:
+        distributed.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo", device="cuda")
+        mesh = make_mesh()
+        batch = shard_batch(batch, mesh)
+    with deterministic(False):
+        trainer = RAFTTrainer(stage, cfg, mesh=mesh)
+        metrics, launches, ms = _trainer_step(trainer, batch)
+        out = {"step": (metrics, launches, ms), "state": _trained(trainer),
+               "generator": trainer.state.generator.get_state()}
+        out["ms"] = [_trainer_step(trainer, batch)[2] for _ in range(PARALLEL_TIMED)]
+    return out
+
+
+def _worker_spatial(world, rank, port):
+    """(c) K4 on each gloo rank's slab of a 56x128 fmap (C = 256, 4 levels,
+    radius 4), fp32 and bf16, the slabs gathered, against one K4 call on
+    the whole frame; and the serving fmap's 55 rows refused."""
+    from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
+    from raft_optical_flow_tpu_torch.parallel import distributed
+    from raft_optical_flow_tpu_torch.parallel.mesh import make_mesh
+    from raft_optical_flow_tpu_torch.parallel.spatial import (
+        all_gather_rows,
+        spatial_sharded_ondemand_corr,
+    )
+
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo", device="cuda")
+    mesh = make_mesh(axis_names=("space",))
+    h, w = SPATIAL_HW
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        f1, levels = ondemand_inputs(1, h, w, dt, seed=310)
+        f1 = f1.reshape(1, h, w, -1)
+        coords = serving_coords(1, h, w, seed=311)
+        try:
+            spatial_sharded_ondemand_corr(f1[:, 1:], levels, coords[:, 1:], 4, mesh, out_dtype=dt)
+            raised = False
+        except ValueError:
+            raised = True
+        torch.cuda.synchronize()
+        co.reset_launches()
+        slab = spatial_sharded_ondemand_corr(f1, levels, coords, 4, mesh, out_dtype=dt)
+        torch.cuda.synchronize()
+        launches = co.LAUNCHES["corr_ondemand_fwd"]
+        routes = co.corr_ondemand_fwd_routes() if dt == torch.bfloat16 else None
+        whole = all_gather_rows(slab, mesh)
+        ref = co.ondemand_corr_pyramid_cuda(f1, levels, coords, 4, out_dtype=dt)
+        ref_routes = co.corr_ondemand_fwd_routes() if dt == torch.bfloat16 else None
+        out[str(dt)] = {"raised_55": raised, "launches": launches, "routes": routes,
+                        "routes_whole": ref_routes,
+                        "equal": bool(torch.equal(whole, ref)),
+                        "max_abs": float((whole.float() - ref.float()).abs().max()),
+                        "slab_rows": slab.shape[1], "shape": tuple(whole.shape)}
+    return out
+
+
+def parallel_worker(check, world, rank, port):
+    """Entry of a `--parallel-worker` process: run the check and save what
+    it returns under PARALLEL_DIR."""
+    from raft_optical_flow_tpu_torch.kernels import _build
+    from raft_optical_flow_tpu_torch.parallel import distributed
+
+    if not _build.library_path().exists():
+        raise RuntimeError("parallel worker: the kernels are not built (phase device builds them)")
+    try:
+        if check == "nccl1":
+            out = _worker_nccl1(port)
+        elif check == "gloo2":
+            out = _worker_gloo2(world, rank, port)
+        else:
+            out = _worker_spatial(world, rank, port)
+    finally:
+        distributed.shutdown()
+    torch.save(out, os.path.join(PARALLEL_DIR, f"{check}_{world}_{rank}.pt"))
+    return 0
+
+
+def _run_workers(check, ranks, world):
+    """Start this script as `--parallel-worker` processes (one per rank in
+    `ranks`), wait for all, and load what each saved."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-worker",
+                               check, str(world), str(r), str(port)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
+             for r in ranks]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"parallel {check} worker failed:\n{err[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return [torch.load(os.path.join(PARALLEL_DIR, f"{check}_{world}_{r}.pt"), weights_only=False)
+            for r in ranks]
+
+
+def _max_abs(a, b):
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+
+def _parallel_nccl1():
+    (out,) = _run_workers("nccl1", [0], 1)
+    (m0, l0, _), (m1, l1, _) = out["plain"], out["group"]
+    a, b = out["plain_state"], out["group_state"]
+    same = {part: all(torch.equal(a[part][k], b[part][k]) for k in a[part]) for part in a}
+    expect = {"corr_lookup_level": 4 * TRAIN_ITERS, "corr_lookup_level_bwd": 4 * TRAIN_ITERS}
+    expect_launches(l1, expect, "parallel (a) mesh step")
+    expect_launches(l0, expect, "parallel (a) plain step")
+    res = {"loss_equal": m0["loss"] == m1["loss"], "metrics_equal": m0 == m1, **same,
+           "launches": l1, "ms_plain": out["ms_plain"], "ms_group": out["ms_group"],
+           "median_ms_plain": float(np.median(out["ms_plain"])),
+           "median_ms_group": float(np.median(out["ms_group"])),
+           "max_abs": {part: _max_abs(a[part], b[part]) for part in a}}
+    log(f"parallel (a) NCCL world 1 on cuda:0 against no group, RAFT-standard chairs step "
+        f"(fp32, BN training, batch {PARALLEL_B}, {TRAIN_HW[0]}x{TRAIN_HW[1]}, {TRAIN_ITERS} "
+        f"iterations, cudnn.deterministic): loss {m1['loss']!r} equal {res['loss_equal']}, "
+        f"metrics equal {res['metrics_equal']}, grads equal {same['grads']}, params equal "
+        f"{same['params']}, buffers equal {same['buffers']} (max |d| {res['max_abs']}); "
+        f"launches {l1}; ms/step without the group {out['ms_plain']} (median "
+        f"{res['median_ms_plain']:.2f}), with it {out['ms_group']} (median "
+        f"{res['median_ms_group']:.2f})")
+    if not (res["metrics_equal"] and all(same.values())):
+        raise AssertionError(f"parallel (a): the world-1 mesh step is not the plain step: {res}")
+    return res
+
+
+def _parallel_gloo2():
+    r0, r1 = _run_workers("gloo2", [0, 1], 2)
+    (ref,) = _run_workers("gloo2", [0], 1)
+    (m0, l0, ms0), (m1, _, _), (mr, _, msr) = r0["step"], r1["step"], ref["step"]
+    replicated = (m0 == m1 and torch.equal(r0["generator"], r1["generator"]) and all(
+        torch.equal(r0["state"][part][k], r1["state"][part][k])
+        for part in ("params", "buffers") for k in r0["state"][part]))
+    rel = {k: abs(m0[k] - mr[k]) / max(abs(mr[k]), 1e-30) for k in mr}
+    close = all(abs(m0[k] - mr[k]) <= 1e-5 * abs(mr[k]) + 1e-6 for k in mr)
+    pa, pr = r0["state"]["params"], ref["state"]["params"]
+    d = torch.cat([(pa[k].double() - pr[k].double()).abs().flatten() for k in pr])
+    frac = float((d > 1e-6).double().mean())
+    bn = {k: v for k, v in r0["state"]["buffers"].items() if "running" in k}
+    bn_d = _max_abs(bn, {k: ref["state"]["buffers"][k] for k in bn})
+    expect_launches(l0, {"corr_lookup_level": 4 * TRAIN_ITERS,
+                         "corr_lookup_level_bwd": 4 * TRAIN_ITERS}, "parallel (b) rank 0 step")
+    res = {"replicated_equal": replicated, "metrics_rel": rel, "params_max_abs": float(d.max()),
+           "params_frac_over_1e-6": frac, "bn_max_abs": bn_d, "launches": l0,
+           "ms_rank0": r0["ms"], "ms_rank1": r1["ms"], "ms_single": ref["ms"],
+           "median_ms_rank0": float(np.median(r0["ms"])),
+           "median_ms_single": float(np.median(ref["ms"])),
+           "generator_equal": bool(torch.equal(r0["generator"], ref["generator"]))}
+    log(f"parallel (b) two gloo ranks on the one card (CUDA tensors), {PARALLEL_B} rows each, "
+        f"against one process at batch {2 * PARALLEL_B} (the chairs step): ranks equal "
+        f"{replicated}; metrics rel {rel} (gate rel 1e-5 + abs 1e-6); params max |d| "
+        f"{res['params_max_abs']!r}, {frac:.4%} over 1e-6 (gates 1e-3, 1%); BN running "
+        f"statistics max |d| {bn_d!r} (gate 1e-5; {len(bn)} tensors); generator equal "
+        f"{res['generator_equal']}; launches {l0}; first step ms rank 0 {ms0:.1f}, single "
+        f"{msr:.1f}; then ms/step rank 0 {r0['ms']} (median {res['median_ms_rank0']:.2f}), "
+        f"rank 1 {r1['ms']}, single {ref['ms']} (median {res['median_ms_single']:.2f})")
+    if not (replicated and close and res["params_max_abs"] < 1e-3 and frac < 0.01
+            and bn_d <= 1e-5 and res["generator_equal"]):
+        raise AssertionError(f"parallel (b): two processes are not the one-process step: {res}")
+    return res
+
+
+def _parallel_spatial():
+    r0, r1 = _run_workers("spatial", [0, 1], 2)
+    log(f"parallel (c) spatial K4, two gloo ranks, fmap {SPATIAL_HW[0]}x{SPATIAL_HW[1]} (C=256, "
+        f"4 levels, radius 4), slabs gathered against one K4 call on the frame: rank 0 {r0}, "
+        f"rank 1 {r1}")
+    for r in (r0, r1):
+        for dt, v in r.items():
+            if not (v["equal"] and v["raised_55"] and v["launches"] == 1
+                    and v["slab_rows"] == SPATIAL_HW[0] // 2):
+                raise AssertionError(f"parallel (c) {dt}: {v}")
+    return r0
+
+
+def phase_parallel(state):
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    os.makedirs(PARALLEL_DIR)
+    try:
+        res = {"nccl1": _parallel_nccl1(), "gloo2": _parallel_gloo2(),
+               "spatial": _parallel_spatial()}
+    finally:
+        shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    state["parallel"] = res
+    log(f"phase parallel: ok in {res['seconds']:.1f} s")
+
+
 def _bytes_needed(levels, coords_flat, radius, out_itemsize):
     """Bytes the lookup must move for these inputs: each query's in-bounds
     (K+1)^2 patch of each level, its coords, and its K^2 outputs per level."""
@@ -3522,6 +3828,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--parallel-worker", nargs=4, metavar=("CHECK", "WORLD", "RANK", "PORT"),
+                    help=argparse.SUPPRESS)  # a process of phase parallel
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -3531,6 +3839,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    if args.parallel_worker:
+        check, world, rank, port = args.parallel_worker
+        return parallel_worker(check, int(world), int(rank), int(port))
     state = {}
     t0 = time.perf_counter()
     if "device" not in phases:

@@ -1,9 +1,12 @@
 """Training CLI of the LiteFlowNet3, SimpleFlowNet and IFNet families
-(supervised and unsupervised) on one device.
+(supervised and unsupervised), on one device or data-parallel over
+processes.
 
 Counterpart of the JAX package's `cli/train_flow.py`, with its flags, but
-`--device` (default cuda) in place of `--platform`; the multi-host
-`--dist_*` flags are not ported yet. The stage's dataset comes from
+`--device` (default cuda) in place of `--platform`. `--dist_coordinator`,
+`--dist_num_processes` and `--dist_process_id` start one process of a
+data-parallel run (one device each, as `cli/train_raft.py`); the batch size
+is the global one. The stage's dataset comes from
 `data/datasets.py::fetch_dataset` (its root overridden by `--data_root`),
 augmented and batched by the port's data layer; `--synthetic` trains on
 random tensors instead (the reference's DummyDataset fallback). Examples:
@@ -25,19 +28,43 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 import numpy as np  # noqa: E402
 
 
-def _synthetic_batches(batch_size, image_size, seed=0):
+def _synthetic_batches(batch_size, image_size, seed=0, num_shards=1, shard_id=0):
     """Endless batches of random tensors, the JAX package's draw: image1
     and image2 uniform in [0, 255) [B, H, W, 3], flow uniform in [-5, 5)
-    [B, H, W, 2], valid ones [B, H, W]; float32 numpy arrays."""
+    [B, H, W, 2], valid ones [B, H, W]; float32 numpy arrays. batch_size is
+    the global batch: each shard draws it whole and keeps its rows."""
+    if batch_size % num_shards != 0:
+        raise ValueError(f"batch_size={batch_size} must be divisible by num_shards="
+                         f"{num_shards} (mirrors FlowDataLoader)")
     rng = np.random.RandomState(seed)
     H, W = image_size
+    lo = shard_id * (batch_size // num_shards)
+    hi = lo + batch_size // num_shards
     while True:
-        yield {
+        batch = {
             "image1": rng.uniform(0, 255, (batch_size, H, W, 3)).astype(np.float32),
             "image2": rng.uniform(0, 255, (batch_size, H, W, 3)).astype(np.float32),
             "flow": rng.uniform(-5, 5, (batch_size, H, W, 2)).astype(np.float32),
             "valid": np.ones((batch_size, H, W), np.float32),
         }
+        yield {k: v[lo:hi] for k, v in batch.items()}
+
+
+class SyntheticBatches:
+    """`_synthetic_batches` with FlowDataLoader's `epochs(skip_batches)`, so
+    that a resumed run reads on from the batch the straight run would."""
+
+    def __init__(self, *args, **kwargs):
+        self.args, self.kwargs = args, kwargs
+
+    def epochs(self, skip_batches: int = 0):
+        it = _synthetic_batches(*self.args, **self.kwargs)
+        for _ in range(skip_batches):
+            next(it)
+        return it
+
+    def __iter__(self):
+        return self.epochs()
 
 
 def parse_args(argv=None):
@@ -64,7 +91,8 @@ def parse_args(argv=None):
                         help="resume the full train state from the latest checkpoint")
     parser.add_argument("--checkpoint_dir", default="checkpoints")
     parser.add_argument("--val_freq", type=int, default=5000)
-    parser.add_argument("--dist_coordinator", default=None, help="multi-host (not ported yet)")
+    parser.add_argument("--dist_coordinator", default=None,
+                        help="multi-process: the coordinator's address host:port")
     parser.add_argument("--dist_num_processes", type=int, default=None)
     parser.add_argument("--dist_process_id", type=int, default=None)
     parser.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
@@ -73,11 +101,23 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if (args.dist_coordinator, args.dist_num_processes, args.dist_process_id) != (None,) * 3:
-        raise NotImplementedError(
-            "--dist_* (multi-host) is not ported yet (ROADMAP.md Queue 1 item 16, parallel)")
 
+    from raft_optical_flow_tpu_torch.parallel import distributed
+
+    # connect to the other processes before any CUDA work (a no-op alone)
+    started = distributed.initialize(args.dist_coordinator, args.dist_num_processes,
+                                     args.dist_process_id, device=args.device)
+    try:
+        return _train(args)
+    finally:
+        if started:
+            distributed.shutdown()
+
+
+def _train(args):
     from raft_optical_flow_tpu_torch.models.liteflownet3 import LFN3Config
+    from raft_optical_flow_tpu_torch.parallel import distributed
+    from raft_optical_flow_tpu_torch.parallel.mesh import make_mesh
     from raft_optical_flow_tpu_torch.train.trainers import FlowTrainer, OptimConfig
     from raft_optical_flow_tpu_torch.utils.weights import load_flax_checkpoint
 
@@ -90,21 +130,31 @@ def main(argv=None):
                         step_size=args.lr_step_size)
     restore = load_flax_checkpoint(args.restore_ckpt) if args.restore_ckpt else None
     image_size = tuple(args.image_size)
+    mesh = make_mesh(device=args.device)
     trainer = FlowTrainer(kind, image_size=image_size, model_config=model_config, optim=optim,
-                          seed=args.seed, restore_variables=restore,
-                          checkpoint_dir=args.checkpoint_dir, device=args.device)
+                          mesh=mesh, seed=args.seed, restore_variables=restore,
+                          checkpoint_dir=args.checkpoint_dir)
+    n, shard = mesh.shape["data"], mesh.coord("data")
+    lead = distributed.is_lead_host()
     if args.synthetic:
-        print(f"Training {kind} on synthetic batches on {trainer.device}")
-        data_iter = _synthetic_batches(args.batch_size, image_size, args.seed)
+        if lead:
+            print(f"Training {kind} on synthetic batches on {n} devices / {n} processes "
+                  f"({trainer.device})")
+        data_iter = SyntheticBatches(args.batch_size, image_size, args.seed,
+                                     num_shards=n, shard_id=shard)
     else:
         from raft_optical_flow_tpu_torch.data.datasets import fetch_dataset
         from raft_optical_flow_tpu_torch.data.pipeline import FlowDataLoader
 
         roots = {args.stage: args.data_root} if args.data_root else None
         dataset = fetch_dataset(args.stage, image_size, roots=roots)
-        print(f"Training {kind} with {len(dataset)} image pairs on {trainer.device}")
+        if lead:
+            print(f"Training {kind} with {len(dataset)} image pairs on {n} devices / {n} "
+                  f"processes ({trainer.device})")
+        # batch_size is GLOBAL; each process loads only its rows of every batch
         data_iter = FlowDataLoader(dataset, batch_size=args.batch_size,
-                                   num_workers=args.num_workers, seed=args.seed)
+                                   num_workers=args.num_workers, seed=args.seed,
+                                   num_shards=n, shard_id=shard)
     trainer.run(data_iter, num_steps=args.num_steps, val_freq=args.val_freq, resume=args.resume)
     return trainer
 

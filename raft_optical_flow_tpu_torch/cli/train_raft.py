@@ -1,7 +1,11 @@
-"""RAFT training CLI on one device (the reference `train.py`).
+"""RAFT training CLI (the reference `train.py`), on one device or
+data-parallel over processes.
 
-Flags are those of the JAX package's `cli/train_raft.py`, without its
-multi-host `--dist_*` flags and `--platform`, plus `--device` (default cuda).
+Flags are those of the JAX package's `cli/train_raft.py`, without
+`--platform`, plus `--device` (default cuda). `--dist_coordinator host:port`,
+`--dist_num_processes N` and `--dist_process_id i` start process i of N
+(one device each: NCCL for the card, gloo for `--device cpu`); the batch
+size is the global one, and each process loads its rows of every batch.
 The stage's dataset comes from `data/datasets.py::fetch_dataset` (its root
 overridden by `--data_root`), augmented and batched by the port's data
 layer; `--validation chairs sintel kitti` runs the validators every
@@ -13,6 +17,11 @@ frames instead (`--image_size` at most 168x296). Example:
       --stage chairs --data_root datasets/FlyingChairs_release/data \\
       --validation chairs --num_steps 100000 --batch_size 10 --lr 4e-4 \\
       --image_size 368 496
+
+Data-parallel on two cards of one host, one command per process:
+
+  python -m raft_optical_flow_tpu_torch.cli.train_raft --stage chairs ... \
+      --dist_coordinator localhost:29500 --dist_num_processes 2 --dist_process_id 0
 """
 
 from __future__ import annotations
@@ -57,6 +66,10 @@ def parse_args(argv=None):
                         help="resume the full train state from the latest checkpoint")
     parser.add_argument("--checkpoint_dir", default="checkpoints")
     parser.add_argument("--val_freq", type=int, default=5000)
+    parser.add_argument("--dist_coordinator", default=None,
+                        help="multi-process: the coordinator's address host:port")
+    parser.add_argument("--dist_num_processes", type=int, default=None)
+    parser.add_argument("--dist_process_id", type=int, default=None)
     parser.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
     return parser.parse_args(argv)
 
@@ -64,12 +77,27 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
 
+    from raft_optical_flow_tpu_torch.parallel import distributed
+
+    # connect to the other processes before any CUDA work (a no-op alone)
+    started = distributed.initialize(args.dist_coordinator, args.dist_num_processes,
+                                     args.dist_process_id, device=args.device)
+    try:
+        return _train(args)
+    finally:
+        if started:
+            distributed.shutdown()
+
+
+def _train(args):
     import torch
 
     from raft_optical_flow_tpu_torch.data.datasets import fetch_dataset
     from raft_optical_flow_tpu_torch.data.pipeline import FlowDataLoader
     from raft_optical_flow_tpu_torch.data.synthetic import SyntheticFlowDataset
     from raft_optical_flow_tpu_torch.models.raft import RAFTConfig
+    from raft_optical_flow_tpu_torch.parallel import distributed
+    from raft_optical_flow_tpu_torch.parallel.mesh import make_mesh
     from raft_optical_flow_tpu_torch.train.configs import StageConfig
     from raft_optical_flow_tpu_torch.train.trainer import RAFTTrainer
     from raft_optical_flow_tpu_torch.utils.weights import load_flax_checkpoint
@@ -98,11 +126,16 @@ def main(argv=None):
         roots = {args.stage: args.data_root} if args.data_root else None
         dataset = fetch_dataset(args.stage, stage.image_size, roots=roots)
     restore = load_flax_checkpoint(args.restore_ckpt) if args.restore_ckpt else None
-    trainer = RAFTTrainer(stage, config=config, restore_variables=restore,
-                          checkpoint_dir=args.checkpoint_dir, device=args.device)
-    print(f"Training with {len(dataset)} image pairs on {trainer.device}")
-    loader = FlowDataLoader(dataset, batch_size=args.batch_size,
-                            num_workers=args.num_workers, seed=args.seed)
+    mesh = make_mesh(device=args.device)
+    trainer = RAFTTrainer(stage, config=config, mesh=mesh, restore_variables=restore,
+                          checkpoint_dir=args.checkpoint_dir)
+    n = mesh.shape["data"]
+    if distributed.is_lead_host():
+        print(f"Training with {len(dataset)} image pairs on {n} devices / {n} processes "
+              f"({trainer.device})")
+    # batch_size is GLOBAL; each process loads only its rows of every batch
+    loader = FlowDataLoader(dataset, batch_size=args.batch_size, num_workers=args.num_workers,
+                            seed=args.seed, num_shards=n, shard_id=mesh.coord("data"))
     val_fn = None
     if args.validation:
         from raft_optical_flow_tpu_torch.cli.evaluate import make_validation_fn

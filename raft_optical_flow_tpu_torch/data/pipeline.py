@@ -4,9 +4,9 @@ Counterpart of `raft_optical_flow_tpu/data/pipeline.py` (`FlowDataLoader`,
 `prefetch_to_device`): per-epoch shuffling and a per-sample RNG derived from
 (seed, epoch, index), so batches do not depend on worker scheduling and a
 resumed run skips to the exact samples it would have seen; a thread pool
-loads samples. The device feed copies each batch from pinned host memory
-without blocking. Multi-host sharding waits for the data-parallel port
-(ROADMAP.md Queue 1 item 16).
+loads samples. With `num_shards` > 1 (data parallelism, one process per
+device) each process loads only its rows of every global batch. The device
+feed copies each batch from pinned host memory without blocking.
 """
 
 from __future__ import annotations
@@ -34,7 +34,19 @@ def _collate(samples) -> Dict[str, np.ndarray]:
 class FlowDataLoader:
     """Endless batches of a FlowDataset (epochs chained, each shuffled, its
     last partial batch dropped): {image1, image2 [N, H, W, 3] float32 0-255,
-    flow [N, H, W, 2], valid [N, H, W]} numpy."""
+    flow [N, H, W, 2], valid [N, H, W]} numpy.
+
+    batch_size is the GLOBAL batch size. With num_shards > 1 (data
+    parallelism: num_shards processes on the mesh's 'data' axis, shard_id
+    this process's coordinate) every process walks the same global index
+    stream and loads only its contiguous batch_size / num_shards rows of
+    each global batch, each sample with the RNG of (seed, epoch, index), so
+    the shards put together are the one-process batch bit for bit.
+
+    This loader also stands in for the JAX package's
+    `data/grain_pipeline.py::GrainFlowLoader`: grain is not on the card's
+    machine, and the same deterministic sharded stream needs no more.
+    """
 
     def __init__(
         self,
@@ -43,12 +55,21 @@ class FlowDataLoader:
         num_workers: int = 4,
         seed: int = 1234,
         prefetch_batches: int = 2,
+        num_shards: int = 1,
+        shard_id: int = 0,
     ):
+        if num_shards > 1 and batch_size % num_shards:
+            raise ValueError(f"batch_size {batch_size} not divisible by num_shards {num_shards}")
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} out of range for {num_shards} shards")
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.prefetch_batches = prefetch_batches
+        self.num_shards = num_shards
+        self.shard_id = shard_id
+        self.local_batch_size = batch_size // num_shards
 
     def __len__(self):
         return len(self.dataset) // self.batch_size
@@ -63,23 +84,28 @@ class FlowDataLoader:
         return self.dataset.__getitem__(int(index), rng=rng)
 
     def epochs(self, skip_batches: int = 0) -> Iterator[Dict[str, np.ndarray]]:
-        """Endless batch iterator; skip_batches fast-forwards the deterministic
-        index stream without loading any data (resume)."""
-        bs = self.batch_size
+        """Endless iterator of this shard's batches; skip_batches
+        fast-forwards the deterministic index stream by that many global
+        batches without loading any data (resume)."""
+        bs = self.local_batch_size
         with ThreadPoolExecutor(self.num_workers) as pool:
             pending = collections.deque()
             max_pending = self.prefetch_batches * bs
 
             def index_stream():
+                # the global stream; this shard's rows of each global batch
                 e = 0
-                skip = skip_batches * bs
+                skip = skip_batches * self.batch_size
+                lo = self.shard_id * bs
                 while True:
                     idx = self._epoch_indices(e)
                     if skip >= len(idx):
                         skip -= len(idx)
                     else:
-                        for i in idx[skip:]:
-                            yield e, i
+                        # skip is whole batches: epochs are batch-aligned
+                        for b0 in range(skip, len(idx), self.batch_size):
+                            for i in idx[b0 + lo:b0 + lo + bs]:
+                                yield e, i
                         skip = 0
                     e += 1
 

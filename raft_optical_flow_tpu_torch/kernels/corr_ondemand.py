@@ -66,7 +66,7 @@ def _kernels() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load()
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.raft_corr_ondemand_fwd.argtypes = [P, P, P, P, I, P, P, I, I, I, I, I, I, P]
+        lib.raft_corr_ondemand_fwd.argtypes = [P, P, P, P, I, P, P, I, I, I, I, I, I, I, P]
         lib.raft_corr_ondemand_fwd.restype = I
         lib.raft_corr_ondemand_bwd_df1.argtypes = [P, P, P, I, P, P, P, I, I, I, I, I, I, P]
         lib.raft_corr_ondemand_bwd_df1.restype = I
@@ -283,13 +283,18 @@ def corr_ondemand_df2_plan_plain(coords: torch.Tensor, shapes: Sequence[Tuple[in
 
 
 def corr_ondemand_fwd(f1: torch.Tensor, levels: Sequence[torch.Tensor], coords: torch.Tensor,
-                      radius: int, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                      radius: int, out_dtype: torch.dtype = torch.float32,
+                      grid_w: int = 0) -> torch.Tensor:
     """K4: on-demand windows of every level in one launch.
 
     f1: [B, Q, C] fp32 or bf16; levels: [B, Hl, Wl, C] in f1's dtype (empty
     levels allowed); coords: [B, Q, 2] fp32 level-0 (x, y); all contiguous.
     Returns [B, Q, L*(2r+1)^2] out_dtype (fp32 sums, one rounding), levels
-    concatenated coarse-last, zeros for an empty level.
+    concatenated coarse-last, zeros for an empty level. grid_w: the width of
+    the grid the queries lie on, for the bf16 kernel's tiles of 4 grid rows
+    x 16 queries (0: level 0's width when Q = H0 * W0, else 16). The tiles
+    decide each one's route, and the two routes may round a bf16 output one
+    step apart; fp32 results and the plain version do not depend on it.
     """
     B, Q, C = f1.shape
     _check_coords(coords, B, Q, radius)
@@ -311,7 +316,7 @@ def corr_ondemand_fwd(f1: torch.Tensor, levels: Sequence[torch.Tensor], coords: 
         err = lib.raft_corr_ondemand_fwd(
             f1.data_ptr(), ctypes.addressof(ptrs), ctypes.addressof(hs), ctypes.addressof(ws),
             len(levels), coords.data_ptr(), out.data_ptr(), B, Q, C, radius,
-            _DTYPE_CODE[f1.dtype], _DTYPE_CODE[out_dtype],
+            _DTYPE_CODE[f1.dtype], _DTYPE_CODE[out_dtype], grid_w,
             torch.cuda.current_stream().cuda_stream,
         )
     _check(err, "corr_ondemand_fwd")

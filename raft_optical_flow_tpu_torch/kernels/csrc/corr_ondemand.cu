@@ -45,8 +45,9 @@
 // fp32 path below) moves about 23 GB of cache traffic per launch there. The
 // bf16 path instead shares taps between neighbouring queries:
 // a block takes a tile of 4 x 16 queries of the query grid (the level-0
-// map's own grid when Q = H0 * W0, as RAFT's coords are; else rows of 16
-// consecutive queries; the tiles decide only the speed, never the result),
+// map's own grid when Q = H0 * W0, as RAFT's coords are, or the grid width
+// the caller gives; else rows of 16 consecutive queries; the tiles decide
+// the speed and the route of each tile, see below),
 // a warp per row of 16 (the M of mma.sync m16n8k16), and per level stages,
 // row by row, the fmap2 pixels of the box that holds the in-bounds taps of
 // all 64 windows in shared memory (128 channels a unit, cp.async,
@@ -69,7 +70,10 @@
 // rows, or whose warp's columns exceed kMaxWarpCols (coords spread over the
 // whole level, wrapped rows of a very wide map) takes the per-query route
 // for that level inside the kernel: a warp per query, the taps read from
-// device memory and dotted on the CUDA cores, as the fp32 path does. A far
+// device memory and dotted on the CUDA cores, as the fp32 path does. The
+// two routes sum a dot's products in other orders, so a query's bf16 output
+// may round one bf16 step apart between them: other tiles of the same
+// queries (another grid) may change a value by that step. A far
 // out-of-bounds query has no in-bounds tap and adds nothing to the box.
 // Each tile and level records the route it took (g_fwd_route), which
 // raft_corr_ondemand_fwd_routes counts for the last bf16 launch.
@@ -402,16 +406,18 @@ __device__ __forceinline__ TileBox tile_box(bool has, int xlo, int xhi, int ylo,
   return t;
 }
 
-// The tiles of K4's and K5's bf16 kernels: the query grid (level 0's when the
-// queries are its pixels, else rows of 16), tiles of kTileWarps rows x
-// kTileCols queries of it per batch element.
+// The tiles of K4's and K5's bf16 kernels: the query grid (grid_w columns
+// when the caller gives them, e.g. a slab of the level-0 map's rows; else
+// level 0's when the queries are its pixels, else rows of 16), tiles of
+// kTileWarps rows x kTileCols queries of it per batch element.
 struct TileGrid {
   int grid_w, tiles_x, tiles_per_b;
   int64_t tiles;
 };
-TileGrid tile_grid(const Levels& lv, int B, int Q) {
+TileGrid tile_grid(const Levels& lv, int B, int Q, int grid_w = 0) {
   TileGrid tg;
-  tg.grid_w = (lv.W[0] > 0 && (int64_t)lv.H[0] * lv.W[0] == Q) ? lv.W[0] : kTileCols;
+  tg.grid_w = grid_w > 0 ? grid_w
+              : (lv.W[0] > 0 && (int64_t)lv.H[0] * lv.W[0] == Q) ? lv.W[0] : kTileCols;
   tg.tiles_x = (tg.grid_w + kTileCols - 1) / kTileCols;
   const int64_t grid_h = ((int64_t)Q + tg.grid_w - 1) / tg.grid_w;
   const int64_t per_b = tg.tiles_x * ((grid_h + kTileWarps - 1) / kTileWarps);
@@ -423,17 +429,19 @@ TileGrid tile_grid(const Levels& lv, int B, int Q) {
 // ---------------------------------------------------------------------------
 // K4, bf16 operands: the tiled kernel (see the note at the top). The queries
 // are read as a grid of grid_w columns (query q at row q / grid_w, column
-// q % grid_w): the level-0 map's own grid when Q = H0 * W0, as RAFT's
-// coords are (so neighbouring queries look at neighbouring pixels), else
-// rows of 16 consecutive queries. Only the choice of tiles depends on it,
-// never the result. A block owns a tile of 4 grid rows x 16 columns of batch
-// element b; warp w the (up to) 16 queries qw + m of row w, m < nq. Lane
-// (g, t) = (lane / 4, lane % 4) holds the A fragments of
-// queries g and g + 8: for each 32-channel group kk, channels 32kk + 8t ..
-// 32kk + 8t + 7 of both rows (two 16-byte loads). The k order of the mma is
-// permuted the same way in A and B (k-step 2kk: channels 8t..8t+3 of each
-// group, k-step 2kk+1: 8t+4..8t+7), so B comes from one 16-byte shared load
-// of pixel g's channels 8t..8t+7 and no ldmatrix is needed. For the blend,
+// q % grid_w): the grid width the caller gives (a slab of level 0's rows),
+// else the level-0 map's own grid when Q = H0 * W0, as RAFT's coords are
+// (so neighbouring queries look at neighbouring pixels), else rows of 16
+// consecutive queries. The tiles, and so each tile's route, depend on it
+// (a route may round a bf16 output one step apart). A block owns a tile of
+// 4 grid rows x 16 columns of batch element b; warp w the (up to) 16
+// queries qw + m of row w, m < nq. Lane (g, t) = (lane / 4, lane % 4) holds
+// the A fragments of queries g and g + 8: for each 32-channel group kk,
+// channels 32kk + 8t .. 32kk + 8t + 7 of both rows (two 16-byte loads). The
+// k order of the mma is permuted the same way in A and B (k-step 2kk:
+// channels 8t..8t+3 of each group, k-step 2kk+1: 8t+4..8t+7), so B comes
+// from one 16-byte shared load of pixel g's channels 8t..8t+7 and no
+// ldmatrix is needed. For the blend,
 // lane (m, h) = (lane / 2, lane % 2) owns query m and window columns a of
 // half h.
 template <typename TO, int R, int C>
@@ -1317,13 +1325,13 @@ void launch_fwd(const void* f1, const Levels& lv, const void* coords, void* out,
 
 template <typename TO, int R, int C>
 cudaError_t launch_fwd_tiled(const void* f1, const Levels& lv, const void* coords, void* out,
-                             int B, int Q, cudaStream_t s) {
+                             int B, int Q, int grid_w, cudaStream_t s) {
   auto kernel = ondemand_fwd_tiled_kernel<TO, R, C>;
   const size_t smem = fwd_smem<TO>();
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const TileGrid tg = tile_grid(lv, B, Q);
+  const TileGrid tg = tile_grid(lv, B, Q, grid_w);
   if (tg.tiles > 0x7fffffff) return cudaErrorInvalidConfiguration;
   g_last_tiles = (int)tg.tiles;
   g_last_levels = lv.n;
@@ -1335,15 +1343,15 @@ cudaError_t launch_fwd_tiled(const void* f1, const Levels& lv, const void* coord
 
 template <typename T, typename TO>
 cudaError_t fwd_by_shape(const void* f1, const Levels& lv, const void* coords, void* out, int B,
-                         int Q, int C, int radius, cudaStream_t s) {
+                         int Q, int C, int radius, int grid_w, cudaStream_t s) {
   const int64_t bq = (int64_t)B * Q;
   if constexpr (sizeof(T) == 2) {
     if (radius == 4) {
-      return C == 256 ? launch_fwd_tiled<TO, 4, 256>(f1, lv, coords, out, B, Q, s)
-                      : launch_fwd_tiled<TO, 4, 128>(f1, lv, coords, out, B, Q, s);
+      return C == 256 ? launch_fwd_tiled<TO, 4, 256>(f1, lv, coords, out, B, Q, grid_w, s)
+                      : launch_fwd_tiled<TO, 4, 128>(f1, lv, coords, out, B, Q, grid_w, s);
     }
-    return C == 256 ? launch_fwd_tiled<TO, 3, 256>(f1, lv, coords, out, B, Q, s)
-                    : launch_fwd_tiled<TO, 3, 128>(f1, lv, coords, out, B, Q, s);
+    return C == 256 ? launch_fwd_tiled<TO, 3, 256>(f1, lv, coords, out, B, Q, grid_w, s)
+                    : launch_fwd_tiled<TO, 3, 128>(f1, lv, coords, out, B, Q, grid_w, s);
   } else {
     g_last_tiles = 0;
     if (radius == 4) {
@@ -1443,11 +1451,11 @@ extern "C" int raft_corr_ondemand_fwd(const void* f1, const void* const* level_p
                                       const int* level_h, const int* level_w,
                                       int n_levels, const void* coords, void* out,
                                       int B, int Q, int C, int radius, int in_dtype,
-                                      int out_dtype, void* stream) {
+                                      int out_dtype, int grid_w, void* stream) {
   Levels lv;
   if (!fill_levels(&lv, level_ptrs, level_h, level_w, n_levels) ||
       !kernel_shape_ok(B, Q, C, radius) || in_dtype < 0 || in_dtype > 1 ||
-      out_dtype < 0 || out_dtype > 1)
+      out_dtype < 0 || out_dtype > 1 || grid_w < 0)
     return (int)cudaErrorInvalidValue;
   const int64_t bq = (int64_t)B * Q;
   if (bq == 0) return (int)cudaSuccess;
@@ -1455,10 +1463,10 @@ extern "C" int raft_corr_ondemand_fwd(const void* f1, const void* const* level_p
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (in_dtype * 2 + out_dtype) {
-    case 0: err = fwd_by_shape<float, float>(f1, lv, coords, out, B, Q, C, radius, s); break;
-    case 1: err = fwd_by_shape<float, __nv_bfloat16>(f1, lv, coords, out, B, Q, C, radius, s); break;
-    case 2: err = fwd_by_shape<__nv_bfloat16, float>(f1, lv, coords, out, B, Q, C, radius, s); break;
-    default: err = fwd_by_shape<__nv_bfloat16, __nv_bfloat16>(f1, lv, coords, out, B, Q, C, radius, s); break;
+    case 0: err = fwd_by_shape<float, float>(f1, lv, coords, out, B, Q, C, radius, grid_w, s); break;
+    case 1: err = fwd_by_shape<float, __nv_bfloat16>(f1, lv, coords, out, B, Q, C, radius, grid_w, s); break;
+    case 2: err = fwd_by_shape<__nv_bfloat16, float>(f1, lv, coords, out, B, Q, C, radius, grid_w, s); break;
+    default: err = fwd_by_shape<__nv_bfloat16, __nv_bfloat16>(f1, lv, coords, out, B, Q, C, radius, grid_w, s); break;
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

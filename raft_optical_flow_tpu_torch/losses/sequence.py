@@ -7,7 +7,9 @@ Counterpart of `raft_optical_flow_tpu/losses/sequence.py`.
 invalid ones zeroed (not over the valid count: the reference RAFT's quirk,
 kept); epe/1px/3px/5px over the valid pixels of the last prediction.
 `multiscale_sequence_loss`: per-level L1 over the valid pixels, normalized
-by their count.
+by their count. Inside `parallel.distributed.data_parallel` a count over
+the batch is the global batch's (`distributed.batch_ratio`): each value is
+this process's share, whose mean over the processes is the global value.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from raft_optical_flow_tpu_torch.ops.grid import resize_bilinear, resize_nearest
+from raft_optical_flow_tpu_torch.parallel import distributed
 
 MAX_FLOW = 400.0
 
@@ -45,13 +48,11 @@ def sequence_loss(
     with torch.no_grad():
         epe = torch.sqrt(torch.sum((flow_preds[-1] - flow_gt) ** 2, dim=-1))
         vf = valid.to(epe.dtype)
-        denom = torch.clamp(vf.sum(), min=1.0)
-        metrics = {
-            "epe": torch.sum(epe * vf) / denom,
-            "1px": torch.sum((epe < 1).to(epe.dtype) * vf) / denom,
-            "3px": torch.sum((epe < 3).to(epe.dtype) * vf) / denom,
-            "5px": torch.sum((epe < 5).to(epe.dtype) * vf) / denom,
-        }
+        sums = torch.stack([torch.sum(epe * vf), torch.sum((epe < 1).to(epe.dtype) * vf),
+                            torch.sum((epe < 3).to(epe.dtype) * vf),
+                            torch.sum((epe < 5).to(epe.dtype) * vf)])
+        ratios = distributed.batch_ratio(sums, vf.sum(), floor=1.0)
+        metrics = dict(zip(("epe", "1px", "3px", "5px"), ratios))
     return flow_loss, metrics
 
 
@@ -87,5 +88,5 @@ def multiscale_sequence_loss(
         else:
             gt_i, v_i = flow_gt, valid_f
         l1 = torch.abs(pred - gt_i)
-        total = total + w_i * torch.sum(v_i * l1) / (torch.sum(v_i) + 1e-8)
+        total = total + distributed.batch_ratio(w_i * torch.sum(v_i * l1), torch.sum(v_i), 1e-8)
     return total

@@ -17,7 +17,11 @@ fixed-point integers, so it is the same on every run on the card. It feeds
 only stopped-gradient masks and carries no gradient. Reductions are
 mask-weighted, as in JAX; |x| and clip take JAX's gradients at the kinks
 (`abs_jax`, `clip_jax`). Random crops and shifts draw from an explicit
-`torch.Generator` where JAX takes a key.
+`torch.Generator` where JAX takes a key. Inside
+`parallel.distributed.data_parallel` the terms that divide a masked sum by
+a count over the batch take the global count (`distributed.batch_ratio`),
+and crops and shifts are drawn for the global batch, each process keeping
+its rows (`distributed.local_rows`).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 
 from raft_optical_flow_tpu_torch.ops.grid import abs_jax, bilinear_sampler, clip_jax, resize_bilinear
 from raft_optical_flow_tpu_torch.ops.unflow_ops import splat_sum
+from raft_optical_flow_tpu_torch.parallel import distributed
 
 # ----------------------------------------------------------------------------- ops
 
@@ -305,7 +310,7 @@ def census_loss(image_a, image_b, mask_bhw3, patch_size: int = 7,
     hamming = soft_hamming(census_transform(image_a, patch_size), census_transform(image_b, patch_size))
     padded_mask = zero_mask_border(mask_bhw3, patch_size)
     diff = distance_metric_fn(hamming) * padded_mask
-    return torch.sum(diff) / (torch.sum(padded_mask.detach()) + 1e-6)
+    return distributed.batch_ratio(torch.sum(diff), torch.sum(padded_mask.detach()), 1e-6)
 
 
 # -------------------------------------------------------------------------- ssim
@@ -364,8 +369,10 @@ def random_crop(generator: torch.Generator, batch: torch.Tensor, max_offset_heig
     drawn uniformly in [0, max] from `generator`."""
     B, H, W, _ = batch.shape
     th, tw = H - max_offset_height, W - max_offset_width
-    oh = torch.randint(0, max_offset_height + 1, (B,), generator=generator, device=generator.device)
-    ow = torch.randint(0, max_offset_width + 1, (B,), generator=generator, device=generator.device)
+    oh = distributed.local_rows(lambda n: torch.randint(
+        0, max_offset_height + 1, (n,), generator=generator, device=generator.device), B)
+    ow = distributed.local_rows(lambda n: torch.randint(
+        0, max_offset_width + 1, (n,), generator=generator, device=generator.device), B)
     offsets = torch.stack([oh, ow], dim=-1)
     cropped = torch.stack([batch[b, h0:h0 + th, w0:w0 + tw]
                            for b, (h0, w0) in enumerate(offsets.tolist())])
@@ -377,10 +384,12 @@ def random_shift(generator: torch.Generator, batch: torch.Tensor, max_shift_heig
     """A random circular shift of each element of [B, H, W, C]: (shifted,
     shifts [B, 2] (h, w)), the shifts drawn uniformly in [-max, max]."""
     B = batch.shape[0]
-    sh = torch.randint(-max_shift_height, max_shift_height + 1, (B,), generator=generator,
-                       device=generator.device)
-    sw = torch.randint(-max_shift_width, max_shift_width + 1, (B,), generator=generator,
-                       device=generator.device)
+    sh = distributed.local_rows(lambda n: torch.randint(
+        -max_shift_height, max_shift_height + 1, (n,), generator=generator,
+        device=generator.device), B)
+    sw = distributed.local_rows(lambda n: torch.randint(
+        -max_shift_width, max_shift_width + 1, (n,), generator=generator,
+        device=generator.device), B)
     shifts = torch.stack([sh, sw], dim=-1)
     shifted = torch.stack([torch.roll(batch[b], (s0, s1), dims=(0, 1))
                            for b, (s0, s1) in enumerate(shifts.tolist())])
@@ -456,8 +465,9 @@ def compute_loss(
 
         if "photo" in weights:
             error = metric_fns["photo"](images[i] - warped_images[key])
-            losses["photo"] += (weights["photo"] * torch.sum(mask_level0 * error)
-                                / (torch.sum(mask_level0) + 1e-16) / num_pairs)
+            losses["photo"] += distributed.batch_ratio(
+                weights["photo"] * torch.sum(mask_level0 * error), torch.sum(mask_level0),
+                1e-16) / num_pairs
 
         if "smooth1" in weights or "smooth2" in weights:
             edge_constant = weights.get("edge_constant", 0.0)
@@ -496,7 +506,8 @@ def compute_loss(
         if "ssim" in weights:
             ssim_error, avg_w = weighted_ssim(warped_images[key], images[i], mask_level0[..., 0])
             losses["ssim"] += weights["ssim"] * (
-                torch.sum(ssim_error * avg_w) / (torch.sum(avg_w) + 1e-16) / num_pairs)
+                distributed.batch_ratio(torch.sum(ssim_error * avg_w), torch.sum(avg_w), 1e-16)
+                / num_pairs)
 
         if "census" in weights:
             losses["census"] += (weights["census"]
@@ -530,8 +541,9 @@ def compute_loss(
             teacher_mask = selfsup_transform_fns[2](teacher_mask, i_or_ij=(i, j), is_flow=False)
             error = robust_l1(teacher_flow.detach() - student_flow)
             mask = (teacher_mask * student_mask).detach()
-            losses["selfsup"] += (weights["selfsup"] * torch.sum(mask * error)
-                                  / (torch.sum(torch.ones_like(mask)) + 1e-16) / num_pairs)
+            losses["selfsup"] += distributed.batch_ratio(
+                weights["selfsup"] * torch.sum(mask * error), torch.sum(torch.ones_like(mask)),
+                1e-16) / num_pairs
 
     losses["total"] = sum(losses.values())
     return losses
@@ -547,7 +559,8 @@ def supervised_loss(weights, ground_truth_flow, ground_truth_valid, predicted_fl
     if ground_truth_valid is None:
         ground_truth_valid = torch.ones(ground_truth_flow.shape[:-1] + (1,),
                                         device=ground_truth_flow.device)
-    losses = {"supervision": weights["supervision"] * torch.sum(ground_truth_valid * error)
-              / (torch.sum(ground_truth_valid) + 1e-16)}
+    losses = {"supervision": distributed.batch_ratio(
+        weights["supervision"] * torch.sum(ground_truth_valid * error),
+        torch.sum(ground_truth_valid), 1e-16)}
     losses["total"] = losses["supervision"]
     return losses

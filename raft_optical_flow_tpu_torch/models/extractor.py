@@ -7,7 +7,7 @@ SmallEncoder (32/64/96). Submodule names are the flax names (`layer1_0`,
 (`utils/weights.py`). Both encoders take the two frames stacked on the batch
 axis; the caller folds and unfolds them.
 
-`forward(x, train=False, bn_train=None, generator=None)` follows the JAX
+`forward(x, train=False, bn_train=None, generator=None, blocks=1)` follows the JAX
 encoders: `bn_train` (default `train`) puts BatchNorm in training mode (batch
 statistics, running statistics updated); `train` with `dropout > 0` drops
 whole output channels with masks drawn from `generator`.
@@ -88,8 +88,9 @@ class _Encoder(nn.Module):
         self.conv2 = conv(cin, output_dim, 1, 1, 0)
 
     def forward(self, x: torch.Tensor, train: bool = False, bn_train: Optional[bool] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """x: [N, 3, H, W] normalized images -> [N, output_dim, H/8, W/8]."""
+                generator: Optional[torch.Generator] = None, blocks: int = 1) -> torch.Tensor:
+        """x: [N, 3, H, W] normalized images -> [N, output_dim, H/8, W/8];
+        blocks: x's rows are that many stacked batches (the dropout draw)."""
         bn_train = train if bn_train is None else bn_train
         x = F.relu(self.norm1(self.conv1(x), bn_train))
         for i in (1, 2, 3):
@@ -99,7 +100,7 @@ class _Encoder(nn.Module):
         if train and self.dropout > 0:
             if generator is None:
                 raise ValueError("dropout in training needs a generator")
-            x = channel_dropout(x, self.dropout, generator)
+            x = channel_dropout(x, self.dropout, generator, blocks)
         return x
 
 

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from raft_optical_flow_tpu_torch.ops.grid import widen
+from raft_optical_flow_tpu_torch.parallel import distributed
 
 IntPair = Union[int, Sequence[int]]
 
@@ -155,10 +156,22 @@ def batch_norm_train(
     input dtype. Updates the running statistics in place with
     `ra = momentum * ra + (1 - momentum) * stat`, the variance BIASED as flax
     keeps it: `F.batch_norm(training=True)` would store the unbiased one.
+
+    Inside `parallel.distributed.data_parallel` the statistics are the
+    global batch's, as XLA's over a batch-sharded array: each process's
+    E[x] and E[x^2] are averaged over the processes (an all-reduce with
+    gradient; each holds the same number of rows), so the running
+    statistics stay equal on every process. `torch.nn.SyncBatchNorm` would
+    store the unbiased variance.
     """
     x32 = x.float()
     mean = x32.mean(dim=(0, 2, 3))
     mean_sq = (x32 * x32).mean(dim=(0, 2, 3))
+    group = distributed.data_group()
+    if group is not None:
+        stats = distributed.all_reduce_sum_grad(torch.stack([mean, mean_sq]), group)
+        stats = stats / distributed.data_world()
+        mean, mean_sq = stats[0], stats[1]
     var = torch.clamp(mean_sq - mean * mean, min=0.0)
     with torch.no_grad():
         running_mean.copy_(momentum * running_mean + (1 - momentum) * mean)
@@ -204,14 +217,19 @@ def apply_norm(
     raise ValueError(f"unknown norm_fn {norm_fn!r}")
 
 
-def channel_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def channel_dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+                    blocks: int = 1) -> torch.Tensor:
     """Dropout of whole channels of NCHW x: one keep-mask per sample and channel,
     kept values scaled by 1/(1-rate) (flax `nn.Dropout(broadcast_dims=(1, 2))`
-    on NHWC). The mask is drawn on the generator's device from `generator`."""
+    on NHWC). The mask is drawn on the generator's device from `generator`,
+    at the global batch inside `data_parallel` (`distributed.local_rows`;
+    x's rows are `blocks` stacked copies of the batch)."""
     if rate <= 0.0:
         return x
     keep = 1.0 - rate
-    u = torch.rand(x.shape[0], x.shape[1], 1, 1, generator=generator, device=generator.device)
+    u = distributed.local_rows(
+        lambda n: torch.rand(n, x.shape[1], 1, 1, generator=generator, device=generator.device),
+        x.shape[0], blocks)
     mask = (u < keep).to(x.device)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 

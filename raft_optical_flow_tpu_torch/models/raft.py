@@ -194,7 +194,8 @@ class RAFT(nn.Module):
         image1 = 2.0 * (image1.to(self._wide) / 255.0) - 1.0
         image2 = 2.0 * (image2.to(self._wide) / 255.0) - 1.0
         pair = torch.cat([image1, image2], dim=0).permute(0, 3, 1, 2).to(dtype)
-        fmaps = self.fnet(pair, train, bn_train, generator).to(self._wide).permute(0, 2, 3, 1)
+        fmaps = self.fnet(pair, train, bn_train, generator, blocks=2)
+        fmaps = fmaps.to(self._wide).permute(0, 2, 3, 1)
         fmap1, fmap2 = fmaps[:N], fmaps[N:]
         if cfg.alternate_corr:
             # pool in fp32, then round once (bf16 policy) for every iteration

@@ -1,5 +1,6 @@
-"""RAFT trainer on one device: AdamW with a linear one-cycle schedule, gradient
-clipping, the train step, logging and checkpoints.
+"""RAFT trainer, on one device or data-parallel over processes: AdamW with a
+linear one-cycle schedule, gradient clipping, the train step, logging and
+checkpoints.
 
 Counterpart of `raft_optical_flow_tpu/train/trainer.py`. The optimizer is
 optax's, rebuilt, not torch's:
@@ -12,8 +13,13 @@ optax's, rebuilt, not torch's:
     (bias-corrected moments, eps outside the square root, decoupled weight
     decay on every parameter, all scaled by the scheduled lr).
 
-Mesh/SPMD data parallelism is not ported yet (ROADMAP.md Queue 1 item 16):
-the trainer drives one device.
+Data parallelism: with a mesh (`parallel/mesh.py::make_mesh`) each process
+drives one device and feeds its rows of every global batch; the step runs
+inside `parallel.distributed.data_parallel` over the mesh's 'data' axis
+(global BatchNorm statistics and batch-wide counts, gradients averaged
+before the clip, metrics averaged), so N processes take the step one
+process takes on the global batch. Parameters and the step generator start
+as process 0's; process 0 logs and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -24,9 +30,11 @@ import time
 from typing import Any, Callable, Dict, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 
 from raft_optical_flow_tpu_torch.losses.sequence import sequence_loss
 from raft_optical_flow_tpu_torch.models.raft import RAFT, RAFTConfig
+from raft_optical_flow_tpu_torch.parallel import distributed
 from raft_optical_flow_tpu_torch.train.configs import StageConfig
 
 Schedule = Callable[[int], float]
@@ -183,13 +191,19 @@ def raft_train_step(state: TrainState, batch: Dict[str, torch.Tensor], *, iters:
     """One step. batch: image1/image2 [N, H, W, 3] 0-255, flow [N, H, W, 2],
     valid [N, H, W], on the model's device. BN running statistics update only
     when not freeze_bn. Returns the loss metrics plus `loss` and the global
-    gradient norm before clipping, `grad_norm`, as 0-d tensors."""
+    gradient norm before clipping, `grad_norm`, as 0-d tensors. Inside
+    `distributed.data_parallel` the batch is this process's rows of the
+    global batch and the step is the global batch's."""
     model, gen = state.model, state.generator
     image1, image2 = batch["image1"], batch["image2"]
     if add_noise:
         stdv = torch.rand((), generator=gen, device=gen.device) * 5.0
-        n1 = torch.randn(image1.shape, generator=gen, device=gen.device)
-        n2 = torch.randn(image2.shape, generator=gen, device=gen.device)
+
+        def noise(img):
+            return distributed.local_rows(lambda n: torch.randn(
+                (n,) + tuple(img.shape[1:]), generator=gen, device=gen.device), img.shape[0])
+
+        n1, n2 = noise(image1), noise(image2)
         image1 = torch.clamp(image1 + stdv * n1, 0.0, 255.0)
         image2 = torch.clamp(image2 + stdv * n2, 0.0, 255.0)
 
@@ -197,10 +211,32 @@ def raft_train_step(state: TrainState, batch: Dict[str, torch.Tensor], *, iters:
     preds = model(image1, image2, iters=iters, test_mode=False, train=True,
                   freeze_bn=freeze_bn, generator=gen)
     loss, metrics = sequence_loss(preds, batch["flow"], batch["valid"], gamma=gamma)
+    return finish_step(state, loss, metrics)
+
+
+def finish_step(state: TrainState, loss: torch.Tensor, metrics: Dict[str, Any]) -> Dict[str, Any]:
+    """Backward, the gradients averaged over the data-parallel processes, the
+    optimizer step and the count: the step's metrics, detached, with `loss`
+    and `grad_norm`, each averaged over the processes (`grad_norm` is
+    global already)."""
     loss.backward()
+    distributed.average_gradients(state.optimizer.param_groups[0]["params"])
     grad_norm = state.optimizer.step()
     state.step += 1
-    return dict(metrics, loss=loss.detach(), grad_norm=grad_norm)
+    out = {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
+    return distributed.mean_over_ranks(dict(out, loss=loss.detach(), grad_norm=grad_norm),
+                                       keep=("grad_norm",))
+
+
+def replicate_from_lead(state: TrainState) -> None:
+    """Every process takes process 0's model (parameters and buffers) and
+    step generator state; a no-op without a process group."""
+    if not dist.is_initialized():
+        return
+    distributed.broadcast_(list(state.model.state_dict().values()), group=dist.group.WORLD)
+    gen_state = state.generator.get_state()
+    distributed.broadcast_([gen_state], group=dist.group.WORLD)
+    state.generator.set_state(gen_state)
 
 
 class MetricLogger:
@@ -231,13 +267,19 @@ class MetricLogger:
 
 
 class RAFTTrainer:
-    """End-to-end trainer on one device: steps, logging, checkpoints, resume.
+    """End-to-end trainer: steps, logging, checkpoints, resume; on one
+    device, or data-parallel over the processes of `mesh`.
 
-    `val_fn(model) -> {name: value}` is an optional validation hook, called
-    every `stage.val_freq` steps (the validators are not ported yet).
+    With a mesh the trainer runs on the mesh's device for this process
+    (`device` is not read), each process starts from process 0's model and
+    step generator, and `train_step` takes this process's rows of the
+    global batch (`parallel/mesh.py::shard_batch`, or a `FlowDataLoader`
+    sharded by the mesh's 'data' coordinate). `val_fn(model) -> {name:
+    value}` is an optional validation hook, called every `stage.val_freq`
+    steps.
     """
 
-    def __init__(self, stage: StageConfig, config: Optional[RAFTConfig] = None,
+    def __init__(self, stage: StageConfig, config: Optional[RAFTConfig] = None, mesh=None,
                  restore_variables: Optional[Dict] = None, checkpoint_dir: str = "checkpoints",
                  device="cuda"):
         self.stage = stage
@@ -245,9 +287,12 @@ class RAFTTrainer:
             small=stage.small,
             compute_dtype=torch.bfloat16 if stage.mixed_precision else torch.float32,
         )
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
         self.checkpoint_dir = checkpoint_dir
         self.state = create_train_state(self.config, stage, restore_variables, self.device)
+        if mesh is not None:
+            replicate_from_lead(self.state)
         self.schedule = self.state.optimizer.schedule
         self.logger = MetricLogger(schedule=self.schedule)
 
@@ -258,55 +303,18 @@ class RAFTTrainer:
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
         st = self.stage
-        return raft_train_step(self.state, batch, iters=st.iters, gamma=st.gamma,
-                               add_noise=st.add_noise, freeze_bn=st.freeze_bn)
+        with distributed.data_parallel(data_group(self.mesh)):
+            return raft_train_step(self.state, batch, iters=st.iters, gamma=st.gamma,
+                                   add_noise=st.add_noise, freeze_bn=st.freeze_bn)
 
     def run(self, data_iter, num_steps: Optional[int] = None, val_fn=None,
             resume: bool = False) -> TrainState:
         """The reference `train.py` loop (log every 100 steps, checkpoint and
         validate every val_freq), plus full-state latest/best/periodic
-        checkpoints for resume.
-
-        data_iter is a FlowDataLoader (resume then skips its deterministic
-        sample stream to the restored step, and batches are prefetched to the
-        device) or a plain iterator of batches (resume reads on from where it
-        stands).
-        """
-        from raft_optical_flow_tpu_torch.data.pipeline import prefetch_to_device
-        from raft_optical_flow_tpu_torch.utils.checkpoint import (
-            CheckpointManager,
-            best_checkpoint_metric,
-        )
-
+        checkpoints for resume (`train_loop`)."""
         st = self.stage
-        num_steps = num_steps or st.num_steps
-        mgr = CheckpointManager(os.path.join(self.checkpoint_dir, f"{st.name}_state"),
-                                keep_every=st.val_freq)
-        if resume:
-            self.state, ok = mgr.restore_latest(self.state)
-            if ok:
-                print(f"resumed from step {self.state.step}")
-        start = self.state.step
-        feed = None
-        if hasattr(data_iter, "epochs"):
-            feed = data_iter = prefetch_to_device(data_iter.epochs(skip_batches=start),
-                                                  device=self.device)
-        try:
-            for step in range(start, num_steps):
-                metrics = self.train_step(next(data_iter))
-                self.logger.push({k: float(v) for k, v in metrics.items()})
-                if (step + 1) % st.val_freq == 0:
-                    self.save_checkpoint(f"{st.name}_{step + 1}")
-                    metric = None
-                    if val_fn is not None:
-                        metric = best_checkpoint_metric(val_fn(self.model))
-                    mgr.save(self.state, step + 1, metric)
-        finally:
-            if feed is not None:
-                feed.close()
-        self.save_checkpoint(st.name)
-        mgr.save(self.state, num_steps)
-        return self.state
+        return train_loop(self, data_iter, num_steps or st.num_steps, st.name, st.val_freq,
+                          val_fn, resume)
 
     def save_checkpoint(self, name: str) -> str:
         """Weights and BN statistics as `<checkpoint_dir>/<name>.npz` in the
@@ -320,3 +328,68 @@ class RAFTTrainer:
         path = os.path.join(self.checkpoint_dir, f"{name}.npz")
         save_flax_checkpoint(state_dict_to_flax(self.model.state_dict()), path)
         return path
+
+
+def data_group(mesh):
+    """The process group of the mesh's 'data' axis (None: no mesh, or one
+    process without `torch.distributed`)."""
+    return None if mesh is None else mesh.group("data")
+
+
+def train_loop(trainer, data_iter, num_steps: int, name: str, val_freq: int, val_fn=None,
+               resume: bool = False) -> TrainState:
+    """The loop of both trainers: a step on each batch, its metrics logged,
+    and every val_freq steps a weights `.npz` (`<name>_<step>.npz`), the
+    optional validation (`val_fn(model) -> {name: value}`) and a full-state
+    checkpoint (latest, best, periodic, under `<name>_state/`); at the end
+    `<name>.npz` and the latest state.
+
+    data_iter is a FlowDataLoader (resume skips its deterministic stream to
+    the restored step, and batches are prefetched to the device) or a plain
+    iterator of batches (resume reads on from where it stands). With a
+    process group, every process steps, validates and restores; process 0
+    alone logs and writes, the others wait for its writes, and the metric
+    that picks 'best' is process 0's.
+    """
+    from raft_optical_flow_tpu_torch.data.pipeline import prefetch_to_device
+    from raft_optical_flow_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        best_checkpoint_metric,
+    )
+
+    group = dist.group.WORLD if trainer.mesh is not None and dist.is_initialized() else None
+    lead = distributed.is_lead_host()
+    mgr = CheckpointManager(os.path.join(trainer.checkpoint_dir, f"{name}_state"),
+                            keep_every=val_freq)
+    if resume:
+        trainer.state, ok = mgr.restore_latest(trainer.state)
+        if ok and lead:
+            print(f"resumed from step {trainer.state.step}")
+    start = trainer.state.step
+    feed = None
+    if hasattr(data_iter, "epochs"):
+        feed = data_iter = prefetch_to_device(data_iter.epochs(skip_batches=start),
+                                              device=trainer.device)
+    try:
+        for step in range(start, num_steps):
+            metrics = trainer.train_step(next(data_iter))
+            if lead:
+                trainer.logger.push({k: float(v) for k, v in metrics.items()})
+            if (step + 1) % val_freq == 0:
+                if lead:
+                    trainer.save_checkpoint(f"{name}_{step + 1}")
+                metric = None
+                if val_fn is not None:
+                    metric = best_checkpoint_metric(val_fn(trainer.model))
+                metric = distributed.broadcast_float(metric, trainer.device, group=group)
+                if lead:
+                    mgr.save(trainer.state, step + 1, metric)
+                distributed.barrier(group)
+    finally:
+        if feed is not None:
+            feed.close()
+    if lead:
+        trainer.save_checkpoint(name)
+        mgr.save(trainer.state, num_steps)
+    distributed.barrier(group)
+    return trainer.state

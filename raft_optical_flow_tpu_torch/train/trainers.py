@@ -1,5 +1,6 @@
 """Trainers of the LiteFlowNet3, SimpleFlowNet and IFNet families
-(supervised and unsupervised) and RAFT-small's UFlow step, on one device.
+(supervised and unsupervised) and RAFT-small's UFlow step, on one device
+or data-parallel over processes.
 
 Counterpart of `raft_optical_flow_tpu/train/trainers.py`:
 
@@ -27,8 +28,12 @@ batch of tensors on the model's device (images 0-255 [B, H, W, 3], flow
 step count in place, and returns its metrics as 0-d tensors, with `loss`
 and the global gradient norm before clipping, `grad_norm`.
 
-Mesh/SPMD data parallelism is not ported yet (ROADMAP.md Queue 1 item 16):
-the trainer drives one device.
+Data parallelism is `train/trainer.py`'s: with a mesh each process feeds
+its rows of the global batch, and the step runs inside
+`parallel.distributed.data_parallel` over the mesh's 'data' axis, so N
+processes take the step one process takes on the global batch (BatchNorm
+statistics, `_masked_epe`, `multiscale_sequence_loss` and the UFlow terms
+over the global batch; gradients and metrics averaged).
 """
 
 from __future__ import annotations
@@ -49,7 +54,16 @@ from raft_optical_flow_tpu_torch.models.ifnet import IFNet
 from raft_optical_flow_tpu_torch.models.liteflownet3 import LFN3Config, LiteFlowNet3
 from raft_optical_flow_tpu_torch.models.raft import RAFT, RAFTConfig
 from raft_optical_flow_tpu_torch.models.simple_flow import SimpleFlowConfig, SimpleFlowNet
-from raft_optical_flow_tpu_torch.train.trainer import AdamW, MetricLogger, TrainState
+from raft_optical_flow_tpu_torch.parallel import distributed
+from raft_optical_flow_tpu_torch.train.trainer import (
+    AdamW,
+    MetricLogger,
+    TrainState,
+    data_group,
+    finish_step,
+    replicate_from_lead,
+    train_loop,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,19 +96,9 @@ def make_step_optimizer(params, cfg: OptimConfig) -> AdamW:
                  decoupled=cfg.adamw)
 
 
-def _finish(state: TrainState, loss: torch.Tensor, metrics: Dict[str, Any]) -> Dict[str, Any]:
-    """Backward, optimizer step, count: the step's metrics, detached, with
-    `loss` and `grad_norm`."""
-    loss.backward()
-    grad_norm = state.optimizer.step()
-    state.step += 1
-    out = {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
-    return dict(out, loss=loss.detach(), grad_norm=grad_norm)
-
-
 def _masked_epe(flow, gt, valid) -> torch.Tensor:
     epe = torch.sqrt(torch.sum((flow - gt) ** 2, dim=-1))
-    return torch.sum(epe * valid) / torch.clamp(torch.sum(valid), min=1.0)
+    return distributed.batch_ratio(torch.sum(epe * valid), torch.sum(valid), floor=1.0)
 
 
 # ----------------------------------------------------------------- train steps
@@ -119,7 +123,7 @@ def lfn3_train_step(state: TrainState, batch, *, config: LFN3Config):
     loss, out = lfn3_supervised_loss(state.model, images, batch["flow"], batch["valid"])
     with torch.no_grad():
         metrics = {"epe": _masked_epe(out["flows"][:, 0], batch["flow"], batch["valid"])}
-    return _finish(state, loss, metrics)
+    return finish_step(state, loss, metrics)
 
 
 def lfn3_unsup_train_step(state: TrainState, batch, *, config: LFN3Config):
@@ -138,7 +142,7 @@ def lfn3_unsup_train_step(state: TrainState, batch, *, config: LFN3Config):
     preds_bw = run(img2, img1)
     loss, metrics = unsupervised_loss(img1, img2, preds_fw, preds_bw,
                                       scale_weights=(0.32, 0.08, 0.02, 0.01, 0.005))
-    return _finish(state, loss, metrics)
+    return finish_step(state, loss, metrics)
 
 
 def simple_flow_train_step(state: TrainState, batch, *, config: SimpleFlowConfig):
@@ -148,7 +152,7 @@ def simple_flow_train_step(state: TrainState, batch, *, config: SimpleFlowConfig
     state.optimizer.zero_grad(set_to_none=True)
     preds = state.model(img1, img2, train=True)
     loss, metrics = simple_flow_loss(preds, batch["flow"], batch["valid"], img1)
-    return _finish(state, loss, metrics)
+    return finish_step(state, loss, metrics)
 
 
 def simple_flow_unsup_train_step(state: TrainState, batch, *, config: SimpleFlowConfig):
@@ -160,7 +164,7 @@ def simple_flow_unsup_train_step(state: TrainState, batch, *, config: SimpleFlow
     preds_fw = state.model(img1, img2, train=True)
     preds_bw = state.model(img2, img1, train=True)
     loss, metrics = unsupervised_loss(img1, img2, preds_fw, preds_bw)
-    return _finish(state, loss, metrics)
+    return finish_step(state, loss, metrics)
 
 
 def ifnet_train_step(state: TrainState, batch, *, unsupervised: bool = False):
@@ -176,7 +180,7 @@ def ifnet_train_step(state: TrainState, batch, *, unsupervised: bool = False):
     else:
         preds = [f[..., 2:4] for f in flow_list]
         loss, metrics = simple_flow_loss(preds, batch["flow"], batch["valid"], img1)
-    return _finish(state, loss, metrics)
+    return finish_step(state, loss, metrics)
 
 
 UFLOW_WEIGHTS = {"census": 1.0, "smooth2": 2.0, "edge_constant": 150.0, "selfsup": 0.3}
@@ -289,8 +293,9 @@ def uflow_unsup_train_step(
             fw = fw_list[-1].flip(-1)
             epe = torch.sqrt(torch.sum((fw - batch["flow"]) ** 2, dim=-1))
             vmask = batch.get("valid", torch.ones_like(epe))
-            metrics["epe"] = torch.sum(epe * vmask) / torch.clamp(torch.sum(vmask), min=1.0)
-    return _finish(state, losses["total"], metrics)
+            metrics["epe"] = distributed.batch_ratio(torch.sum(epe * vmask), torch.sum(vmask),
+                                                     floor=1.0)
+    return finish_step(state, losses["total"], metrics)
 
 
 # ------------------------------------------------------------------ the trainer
@@ -307,8 +312,11 @@ def _model(base: str, config, device, generator: torch.Generator):
 
 
 class FlowTrainer:
-    """One-device trainer: the kind's step, logging, weights `.npz` files and
-    full-state checkpoints.
+    """Trainer of one step kind: the step, logging, weights `.npz` files and
+    full-state checkpoints; on one device, or data-parallel over the
+    processes of `mesh` (as `train/trainer.py::RAFTTrainer`: the mesh's
+    device, process 0's model and generator, `train_step` on this process's
+    rows of the global batch).
 
     model_kind in STEP_FNS: 'lfn3', 'lfn3_unsup', 'simple_flow',
     'simple_flow_unsup', 'ifnet', 'ifnet_unsup', 'raft_uflow_unsup'.
@@ -349,10 +357,6 @@ class FlowTrainer:
 
         if model_kind not in self.STEP_FNS:
             raise ValueError(f"unknown model_kind {model_kind!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP.md Queue 1 item 16, parallel): "
-                "FlowTrainer drives one device")
         self.model_kind = model_kind
         self.image_size = tuple(image_size)
         base = model_kind.replace("_unsup", "")
@@ -361,7 +365,8 @@ class FlowTrainer:
                             "raft_uflow": RAFTConfig(small=True)}[base]
         self.model_config = model_config
         self.optim = optim or OptimConfig(adamw=(base != "lfn3"))
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
         self.checkpoint_dir = checkpoint_dir
         self.step_kwargs = dict(step_kwargs or {})
 
@@ -378,6 +383,8 @@ class FlowTrainer:
         optimizer = make_step_optimizer(model.parameters(), self.optim)
         self.state = TrainState(model=model, optimizer=optimizer,
                                 generator=torch.Generator(device=self.device).manual_seed(seed + 1))
+        if mesh is not None:
+            replicate_from_lead(self.state)
         self.schedule = optimizer.schedule
         self.logger = MetricLogger(schedule=self.schedule)
         self._step_fn = self.STEP_FNS[model_kind]
@@ -390,7 +397,8 @@ class FlowTrainer:
         """One optimizer step on a batch of arrays or tensors (moved to the
         trainer's device): the step's metrics as 0-d tensors."""
         batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
-        return self._step_fn(self.state, batch, config=self.model_config, **self.step_kwargs)
+        with distributed.data_parallel(data_group(self.mesh)):
+            return self._step_fn(self.state, batch, config=self.model_config, **self.step_kwargs)
 
     @property
     def variables(self) -> Dict[str, Any]:
@@ -401,46 +409,12 @@ class FlowTrainer:
 
     def run(self, data_iter, num_steps: int, val_fn=None, val_freq: int = 5000,
             resume: bool = False) -> TrainState:
-        """The loop: log every step's metrics, and every val_freq steps a
-        weights `.npz` (`<kind>_<step>.npz`), the optional validation
-        (`val_fn(model) -> {name: value}`) and a full-state checkpoint
-        (latest, best, periodic); at the end `<kind>.npz` and the latest
-        state. data_iter is a `FlowDataLoader` (resume skips its stream to
-        the restored step, batches prefetched to the device) or a plain
-        iterator of batches."""
-        from raft_optical_flow_tpu_torch.data.pipeline import prefetch_to_device
-        from raft_optical_flow_tpu_torch.utils.checkpoint import (
-            CheckpointManager,
-            best_checkpoint_metric,
-        )
-
-        mgr = CheckpointManager(os.path.join(self.checkpoint_dir, f"{self.model_kind}_state"),
-                                keep_every=val_freq)
-        if resume:
-            self.state, ok = mgr.restore_latest(self.state)
-            if ok:
-                print(f"resumed from step {self.state.step}")
-        start = self.state.step
-        feed = None
-        if hasattr(data_iter, "epochs"):
-            feed = data_iter = prefetch_to_device(data_iter.epochs(skip_batches=start),
-                                                  device=self.device)
-        try:
-            for step in range(start, num_steps):
-                metrics = self.train_step(next(data_iter))
-                self.logger.push({k: float(v) for k, v in metrics.items()})
-                if (step + 1) % val_freq == 0:
-                    self.save_checkpoint(f"{self.model_kind}_{step + 1}")
-                    metric = None
-                    if val_fn is not None:
-                        metric = best_checkpoint_metric(val_fn(self.model))
-                    mgr.save(self.state, step + 1, metric)
-        finally:
-            if feed is not None:
-                feed.close()
-        self.save_checkpoint(self.model_kind)
-        mgr.save(self.state, num_steps)
-        return self.state
+        """The loop (`train/trainer.py::train_loop`): every step's metrics
+        logged, and every val_freq steps a weights `.npz`
+        (`<kind>_<step>.npz`), the optional validation (`val_fn(model) ->
+        {name: value}`) and a full-state checkpoint; at the end `<kind>.npz`
+        and the latest state."""
+        return train_loop(self, data_iter, num_steps, self.model_kind, val_freq, val_fn, resume)
 
     def save_checkpoint(self, name: str) -> str:
         """The model's weights (and BatchNorm statistics) as

@@ -10,8 +10,11 @@ against the JAX package's, on the CPU.
     JAX package's `load_flax_checkpoint` as the flax tree of a JAX init (the
     golden's keys) and through the port's, BatchNorm statistics included.
   - `train_flow --synthetic` trains two steps on the CPU, writes its
-    checkpoints and resumes; its synthetic batches are the JAX CLI's; the
-    mesh, `--dist_*` and dataset stages are refused.
+    checkpoints and resumes; its synthetic batches are the JAX CLI's; an
+    incomplete `--dist_*` request is refused (it never trains alone), and
+    a dataset stage reads its root. The mesh path and `--dist_*` at two
+    processes: tests/test_torch_parallel_steps.py and
+    test_torch_parallel_cli.py.
 
 One step of each of the seven kinds against the JAX package's step function
 (`check_step` of tests/test_torch_families_grad.py) sits with its family:
@@ -126,10 +129,11 @@ def test_synthetic_batches_are_the_jax_clis():
 
 
 def test_unported_parts_are_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        FlowTrainer("ifnet", (32, 48), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # data parallelism is ported: a request for it that cannot be met raises
+    with pytest.raises(ValueError, match="needs num_processes, process_id"):
         _cli(tmp_path, "--dist_coordinator", "localhost:1234")
+    with pytest.raises(ValueError, match="needs coordinator_address"):
+        _cli(tmp_path, "--dist_num_processes", "2", "--dist_process_id", "1")
     # the dataset stages are ported (data layer): a stage run reads its root
     with pytest.raises(FileNotFoundError, match="no_such_root"):
         train_flow.main(["--model", "ifnet", "--device", "cpu", "--data_root",

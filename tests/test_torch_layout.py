@@ -15,6 +15,7 @@ import inspect
 import os
 
 import pytest
+import torch
 
 from raft_optical_flow_tpu_torch.cli import demo, evaluate, train_flow, train_raft
 from raft_optical_flow_tpu_torch.data.pipeline import prefetch_to_device
@@ -28,6 +29,8 @@ from raft_optical_flow_tpu_torch.models import (
     simple_flow_net,
 )
 from raft_optical_flow_tpu_torch.ops.grid import coords_grid
+from raft_optical_flow_tpu_torch.parallel import distributed
+from raft_optical_flow_tpu_torch.parallel.mesh import make_hybrid_mesh, make_mesh
 from raft_optical_flow_tpu_torch.train.trainer import RAFTTrainer, create_train_state
 from raft_optical_flow_tpu_torch.train.trainers import FlowTrainer
 from raft_optical_flow_tpu_torch.utils import export, grad_parity, profiling
@@ -72,7 +75,9 @@ def test_sources_found():
                 ("eval", "evaluate.py"), ("cli", "evaluate.py"), ("cli", "demo.py"),
                 ("ops", "corr.py"), ("ops", "grid.py"), ("ops", "padding.py"),
                 ("utils", "torch_convert.py"), ("utils", "export.py"),
-                ("utils", "grad_parity.py"), ("utils", "profiling.py"), ("utils", "logging.py")):
+                ("utils", "grad_parity.py"), ("utils", "profiling.py"), ("utils", "logging.py"),
+                ("parallel", "__init__.py"), ("parallel", "distributed.py"),
+                ("parallel", "mesh.py"), ("parallel", "spatial.py")):
         assert os.path.join(PORT, *rel) in srcs
 
 
@@ -115,6 +120,16 @@ def test_training_entry_points_default_to_cuda():
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert train_raft.parse_args(["--stage", "chairs"]).device == "cuda"
     assert train_flow.parse_args(["--model", "ifnet"]).device == "cuda"
+
+
+def test_parallel_entry_points_default_to_cuda():
+    for fn in (distributed.initialize, distributed.local_device, make_mesh, make_hybrid_mesh):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    # the trainers' mesh path: a mesh made with the defaults puts them on the card
+    mesh = make_mesh()
+    assert mesh.device == torch.device("cuda", 0) and mesh.group("data") is None
+    src = inspect.getsource(RAFTTrainer.__init__) + inspect.getsource(FlowTrainer.__init__)
+    assert src.count("self.device = mesh.device if mesh is not None") == 2
 
 
 def test_inference_entry_points_default_to_cuda():
