@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (`raft_optical_flow_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py [--phases device,kernels,small,standard,train,ondemand,fused_gru,lfn3,
-                                    simple_flow,ifnet,flow_train,data_eval,utils,parallel,timing]
+                                    simple_flow,ifnet,flow_train,data_eval,frames,utils,parallel,
+                                    timing]
 
 Phases (each prints one line when it ends; any failure raises and the exit
 code is not 0):
@@ -145,6 +146,19 @@ code is not 0):
             reported; the Sintel submission with warm start and the KITTI
             submission read back; `cli/demo.py` (RAFT-small, LiteFlowNet3 at
             the goldens' params) on the Sintel scene, PNGs read back;
+  frames    the frame decoders and the process-worker loader: every committed
+            fixture (tests/goldens/jpeg/: JPEGs written by Pillow and cv2,
+            Adam7 PNGs of every colour type and depth) read by `read_gen`
+            and held equal to PIL's array (np.array_equal), the 436x1024
+            JPEG pair to the sha256 of PIL's arrays; the pair's decode time
+            on the host (median of 20 reads, one thread); `cli/demo.py`
+            (RAFT-small, checkpoint, 20 iterations) on the pair written
+            twice (three pairs): K1 and K2 20 launches each per pair, each
+            flow equal (torch.equal) to the same frames through the plain
+            lookup, PNGs read back, ms per pair; `GrainFlowLoader` over a
+            chairs tree (batch 10, 368x496 crops) in-process and with 4
+            worker processes, batches equal and each record its (seed, i)
+            draw, pairs/s of both beside FlowDataLoader with 4 threads;
   utils     the utils (`utils/`): RAFT-small (checkpoint) exported through
             `torch.export` at the JAX defaults (1x440x1024, 20 iterations,
             fp32), saved, loaded and run: flow equal to eager (torch.equal),
@@ -223,6 +237,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
@@ -238,7 +253,7 @@ from raft_optical_flow_tpu_torch.utils.grad_parity import VJP_TOL  # the VJP gat
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "kernels", "small", "standard", "train", "ondemand", "fused_gru", "lfn3",
-          "simple_flow", "ifnet", "flow_train", "data_eval", "utils", "parallel", "timing")
+          "simple_flow", "ifnet", "flow_train", "data_eval", "frames", "utils", "parallel", "timing")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16, dense tensor cores
@@ -2370,14 +2385,14 @@ def _warped_sequence(base, hw, n, seed, max_flow=6.0):
     return [np.clip(np.rint(f), 0, 255).astype(np.uint8) for f in frames], flows
 
 
-def _write_trees(root):
+def _write_trees(root, datasets=("chairs", "sintel", "kitti")):
     """FlyingChairs (12 pairs at 384x512, .ppm + .flo, chairs_split.txt: 10
     training, 2 validation), Sintel (training/{clean,final}/<scene>/
     frame_000{1..3}.png and flow/<scene>/*.flo at 436x1024; final = clean
     plus seeded noise) and KITTI (training/image_2/*_1{0,1}.png and 16-bit
     flow_occ/*_10.png at three real sizes, about half the pixels valid),
-    written by the port's writers and read back bit for bit. Returns
-    ({name: root}, files, seconds to write)."""
+    those of them named in `datasets`, written by the port's writers and
+    read back bit for bit. Returns ({name: root}, files, seconds to write)."""
     from raft_optical_flow_tpu_torch.data import frame_utils as fu
 
     t0 = time.perf_counter()
@@ -2390,15 +2405,16 @@ def _write_trees(root):
 
     base = _base_frames()
     chairs = os.path.join(root, "FlyingChairs_release", "data")
-    for i in range(12):
+    for i in range(12 if "chairs" in datasets else 0):
         (f1, f2), (g,) = _warped_sequence(base[i % 2], CHAIRS_HW, 2, seed=i)
         put(os.path.join(chairs, f"{i:05d}_img1.ppm"), f1, fu.write_ppm, fu.read_ppm)
         put(os.path.join(chairs, f"{i:05d}_img2.ppm"), f2, fu.write_ppm, fu.read_ppm)
         put(os.path.join(chairs, f"{i:05d}_flow.flo"), g, fu.write_flow, fu.read_flow)
-    np.savetxt(os.path.join(root, "FlyingChairs_release", "chairs_split.txt"),
-               np.array([1] * 10 + [2] * 2), fmt="%d")
+    if "chairs" in datasets:
+        np.savetxt(os.path.join(root, "FlyingChairs_release", "chairs_split.txt"),
+                   np.array([1] * 10 + [2] * 2), fmt="%d")
     sintel = os.path.join(root, "Sintel")
-    for s, scene in enumerate(SINTEL_SCENES):
+    for s, scene in enumerate(SINTEL_SCENES if "sintel" in datasets else ()):
         frames, flows = _warped_sequence(base[s], SINTEL_HW, 3, seed=100 + s)
         noise = np.random.RandomState(110 + s)
         for i, f in enumerate(frames):
@@ -2410,7 +2426,7 @@ def _write_trees(root):
             put(os.path.join(sintel, "training", "flow", scene, f"frame_{i + 1:04d}.flo"), g,
                 fu.write_flow, fu.read_flow)
     kitti = os.path.join(root, "KITTI")
-    for i, hw in enumerate(KITTI_HWS):
+    for i, hw in enumerate(KITTI_HWS if "kitti" in datasets else ()):
         (f1, f2), (g,) = _warped_sequence(base[i % 2], hw, 2, seed=200 + i)
         put(os.path.join(kitti, "training", "image_2", f"{i:06d}_10.png"), f1, fu.write_png, fu.read_png)
         put(os.path.join(kitti, "training", "image_2", f"{i:06d}_11.png"), f2, fu.write_png, fu.read_png)
@@ -2720,6 +2736,242 @@ def phase_data_eval(state):
     res["seconds"] = time.perf_counter() - t0
     state["data_eval"] = res
     log(f"phase data_eval: ok in {res['seconds']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# the frame decoders (JPEG, Adam7 PNG) and the process-worker loader
+
+FRAMES_DIR = os.path.join(REPO, "raft_optical_flow_tpu_torch", "_build", "frames")
+JPEG_GOLDENS = os.path.join(REPO, "tests", "goldens", "jpeg")
+FRAMES_DEMO_ITERS = 20  # cli/demo.py's default
+FRAMES_DECODES = 20  # reads per frame for the decode time
+
+
+def _frame_fixtures(workdir):
+    """Each committed fixture (tests/goldens/jpeg/small.npz: JPEGs written by
+    Pillow and cv2, Adam7 PNGs of every colour type and depth) written to a
+    file and read by `read_gen`, equal (dtype, shape, np.array_equal) to PIL's
+    array stored beside it; the 436x1024 pair's arrays against the sha256 of
+    PIL's (pair.json)."""
+    import hashlib
+
+    from raft_optical_flow_tpu_torch.data import frame_utils as fu
+
+    g = np.load(os.path.join(JPEG_GOLDENS, "small.npz"))
+    names = sorted(k[len("file/"):] for k in g.files if k.startswith("file/"))
+    os.makedirs(workdir, exist_ok=True)
+    for name in names:
+        path = os.path.join(workdir, name)
+        with open(path, "wb") as f:
+            f.write(g[f"file/{name}"].tobytes())
+        got, ref = fu.read_gen(path), g[f"pil/{name}"]
+        if got.dtype != ref.dtype or got.shape != ref.shape or not np.array_equal(got, ref):
+            raise AssertionError(f"frames: {name} decodes to {got.dtype} {got.shape}, not PIL's "
+                                 f"{ref.dtype} {ref.shape} array")
+    with open(os.path.join(JPEG_GOLDENS, "pair.json")) as f:
+        digests = json.load(f)
+    for name, want in sorted(digests.items()):
+        got = fu.read_gen(os.path.join(JPEG_GOLDENS, name))
+        if (list(got.shape) != want["shape"] or str(got.dtype) != want["dtype"]
+                or hashlib.sha256(got.tobytes()).hexdigest() != want["sha256"]):
+            raise AssertionError(f"frames: {name} does not decode to PIL's array")
+    n_jpeg = sum(n.endswith(".jpg") for n in names)
+    return {"jpeg": n_jpeg, "adam7_png": len(names) - n_jpeg, "pair": sorted(digests)}
+
+
+def _decode_ms():
+    """The median ms of FRAMES_DECODES reads of each 436x1024 JPEG of the pair
+    (read_jpeg: file read and native decode, one host thread)."""
+    from raft_optical_flow_tpu_torch.data import frame_utils as fu
+
+    out = {}
+    for name in ("frame_0001.jpg", "frame_0002.jpg"):
+        path = os.path.join(JPEG_GOLDENS, name)
+        fu.read_jpeg(path)
+        ts = []
+        for _ in range(FRAMES_DECODES):
+            t0 = time.perf_counter()
+            fu.read_jpeg(path)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"median_ms": float(np.median(ts)), "ms": ts}
+    return out
+
+
+def _jpeg_demo(workdir):
+    """`cli/demo.main --small` (checkpoint, 20 iterations) on a folder of the
+    JPEG pair written twice (frame_0001..4.jpg: pairs 1-2, 2-1, 1-2) at
+    436x1024 on the card, under cudnn.deterministic: K1 and K2 20 launches
+    each per pair; each pair's flow equal (torch.equal) to the same padded
+    frames through the plain lookup (same weights); pairs 1 and 3 equal; each
+    PNG read back as (2 x 436, 1024, 3) uint8; ms of each forward (host clock
+    around a synchronize) and of the whole CLI."""
+    import shutil
+
+    from raft_optical_flow_tpu_torch.cli import demo
+    from raft_optical_flow_tpu_torch.data import frame_utils as fu
+    from raft_optical_flow_tpu_torch.models import RAFT, RAFTConfig
+    from raft_optical_flow_tpu_torch.utils.weights import load_flax_npz
+
+    ckpt = os.path.join(REPO, "checkpoints", "raft_small.npz")
+    frames = os.path.join(workdir, "pair")
+    os.makedirs(frames, exist_ok=True)
+    for i, name in enumerate(("frame_0001.jpg", "frame_0002.jpg") * 2):
+        shutil.copy(os.path.join(JPEG_GOLDENS, name), os.path.join(frames, f"frame_{i + 1:04d}.jpg"))
+    rec = []
+
+    def recording(make):
+        def wrapped(*a, **k):
+            fwd, needs_pad = make(*a, **k)
+
+            def run(image1, image2):
+                torch.cuda.synchronize()
+                reset_all()
+                t0 = time.perf_counter()
+                flow = fwd(image1, image2)
+                torch.cuda.synchronize()
+                rec.append({"ms": (time.perf_counter() - t0) * 1e3, "launches": launch_counts(),
+                            "inputs": (image1.clone(), image2.clone()), "flow": flow.clone()})
+                return flow
+
+            return run, needs_pad
+        return wrapped
+
+    with deterministic(algorithms=False):
+        t0 = time.perf_counter()
+        with _patched(demo, "_forward", recording):
+            paths = demo.main(["--model", ckpt, "--small", "--iters", str(FRAMES_DEMO_ITERS),
+                               "--path", frames, "--out", os.path.join(workdir, "demo")])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        plain = RAFT(RAFTConfig(small=True, corr_impl="plain"), device="cuda")
+        plain.load_state_dict(load_flax_npz(ckpt))
+        with torch.inference_mode():
+            flows_plain = [plain(*r["inputs"], iters=FRAMES_DEMO_ITERS, test_mode=True)[1]
+                           for r in rec]
+    per_pair = {"corr_lookup_level": FRAMES_DEMO_ITERS,
+                "corr_lookup_coarse_fused": FRAMES_DEMO_ITERS}
+    for r in rec:
+        expect_launches(r["launches"], per_pair, "frames demo pair")
+    equal = [bool(torch.equal(r["flow"], p)) for r, p in zip(rec, flows_plain)]
+    shapes = [fu.read_png(p).shape for p in paths]
+    dtypes = {fu.read_png(p).dtype for p in paths}
+    padded = tuple(rec[0]["inputs"][0].shape)
+    if len(rec) != 3 or len(paths) != 3 or not all(equal):
+        raise AssertionError(f"frames: demo flows through K1/K2 equal to the plain lookup's: "
+                             f"{equal} ({len(rec)} pairs, {len(paths)} PNGs)")
+    if not torch.equal(rec[0]["flow"], rec[2]["flow"]):
+        raise AssertionError("frames: the same pair twice gave two flows")
+    if shapes != [(2 * SINTEL_HW[0], SINTEL_HW[1], 3)] * 3 or dtypes != {np.dtype(np.uint8)}:
+        raise AssertionError(f"frames: demo wrote {shapes} {dtypes}")
+    if not all(torch.isfinite(r["flow"]).all() for r in rec):
+        raise AssertionError("frames: demo flow not finite")
+    mag = torch.linalg.vector_norm(rec[0]["flow"].float(), dim=-1)
+    return {"pairs": len(rec), "padded": padded, "forward_ms": [r["ms"] for r in rec],
+            "ms_per_pair": float(np.median([r["ms"] for r in rec[1:]])),
+            "cli_s": cli_s, "launches_per_pair": rec[0]["launches"], "flows_equal_plain": equal,
+            "mean_abs_flow": float(mag.mean()), "max_abs_flow": float(mag.max())}
+
+
+def _loader_pairs_per_s(make_iter, warm, batches):
+    """A fresh iterator's first `warm` batches (seconds to the last of them:
+    start-up), then pairs/s over `batches` more and the seconds at which each
+    arrived; the batches it gave."""
+    it = make_iter()
+    t0 = time.perf_counter()
+    got = [next(it) for _ in range(warm)]
+    first = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    stamps = []
+    for _ in range(batches):
+        got.append(next(it))
+        stamps.append(time.perf_counter() - t1)
+    it.close()
+    rate = sum(len(b["flow"]) for b in got[warm:]) / stamps[-1]
+    return {"warm_s": first, "pairs_per_s": rate, "arrivals_s": stamps}, got
+
+
+def _grain_loader(workdir, batches=6):
+    """The chairs stage (10 training pairs at 384x512, 368x496 crops) through
+    GrainFlowLoader (batch 10) in-process and with 4 worker processes: the
+    batches equal, the records of the processes' first and last batch equal
+    to their (seed, i) draws; pairs/s of the processes (after one batch a
+    worker) and of FlowDataLoader with 4 threads (after one batch) over
+    `batches` batches, and in-process over 3."""
+    from raft_optical_flow_tpu_torch.data.datasets import fetch_dataset
+    from raft_optical_flow_tpu_torch.data.grain_pipeline import (
+        GrainFlowLoader,
+        _FlowRecordSource,
+        record_stream,
+    )
+    from raft_optical_flow_tpu_torch.data.pipeline import FlowDataLoader
+
+    roots, n_files, _ = _write_trees(workdir, datasets=("chairs",))
+    ds = fetch_dataset("chairs", CHAIRS_CROP, roots={"chairs": roots["chairs"]})
+    out = {"files": n_files, "records": len(ds)}
+    got = {}
+    for workers, warm, n in ((0, 1, 3), (4, 4, batches)):
+        out[f"grain_{workers}"], got[workers] = _loader_pairs_per_s(
+            lambda w=workers: iter(GrainFlowLoader(ds, 10, num_workers=w, seed=1234)), warm, n)
+    out["threads_4"], _ = _loader_pairs_per_s(
+        lambda: FlowDataLoader(ds, batch_size=10, num_workers=4, seed=1234).epochs(), 1, batches)
+    for a, b in zip(got[0], got[4]):
+        if not all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a):
+            raise AssertionError("frames: GrainFlowLoader's worker processes changed a batch")
+    src = _FlowRecordSource(ds, 1234)
+    stream = list(itertools.islice(record_stream(len(ds), True, 1234), 10 * len(got[4])))
+    for j in (0, len(got[4]) - 1):
+        for r in range(10):
+            want = src[stream[10 * j + r]]
+            if not all(np.array_equal(got[4][j][k][r], want[k]) for k in want):
+                raise AssertionError("frames: a GrainFlowLoader record is not its (seed, i) draw")
+    if got[4][0]["image1"].shape != (10, *CHAIRS_CROP, 3):
+        raise AssertionError(f"frames: loader batch {got[4][0]['image1'].shape}")
+    return out
+
+
+def phase_frames(state):
+    import shutil
+
+    from raft_optical_flow_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    shutil.rmtree(FRAMES_DIR, ignore_errors=True)
+    res = {}
+    try:
+        tb = time.perf_counter()
+        native.get_lib()
+        res["native_build_s"] = time.perf_counter() - tb
+        res["fixtures"] = fx = _frame_fixtures(os.path.join(FRAMES_DIR, "fixtures"))
+        log(f"frames fixtures: {fx['jpeg']} JPEGs and {fx['adam7_png']} Adam7 PNGs equal to "
+            f"PIL's arrays, the pair {fx['pair']} to PIL's sha256 (native library ready in "
+            f"{res['native_build_s']:.2f} s)")
+        res["decode"] = dec = _decode_ms()
+        log("frames decode (read_jpeg, 436x1024 4:2:0 q95, one host thread, median of "
+            f"{FRAMES_DECODES}): " + ", ".join(f"{k} {v['median_ms']:.3f} ms"
+                                               for k, v in dec.items()))
+        reset_all()
+        res["demo"] = d = _jpeg_demo(FRAMES_DIR)
+        log(f"frames demo (cli/demo RAFT-small, {FRAMES_DEMO_ITERS} iterations, JPEG pair "
+            f"{SINTEL_HW} padded to {d['padded']}): {d['pairs']} pairs, forward ms "
+            f"{[round(t, 3) for t in d['forward_ms']]} ({d['ms_per_pair']:.3f} ms/pair after the "
+            f"first), the CLI {d['cli_s']:.2f} s; launches per pair {d['launches_per_pair']}; "
+            f"flows equal to the plain lookup's {d['flows_equal_plain']}; |flow| mean "
+            f"{d['mean_abs_flow']:.3f} max {d['max_abs_flow']:.3f}")
+        res["loader"] = lo = _grain_loader(os.path.join(FRAMES_DIR, "trees"))
+        log(f"frames loader (chairs {lo['records']} pairs, batch 10, {CHAIRS_CROP} crops): "
+            f"GrainFlowLoader in-process {lo['grain_0']['pairs_per_s']:.2f} pairs/s, 4 worker "
+            f"processes {lo['grain_4']['pairs_per_s']:.2f} (4 batches first in "
+            f"{lo['grain_4']['warm_s']:.2f} s; arrivals "
+            f"{[round(t, 2) for t in lo['grain_4']['arrivals_s']]} s), FlowDataLoader 4 "
+            f"threads {lo['threads_4']['pairs_per_s']:.2f} (first batch "
+            f"{lo['threads_4']['warm_s']:.2f} s; arrivals "
+            f"{[round(t, 2) for t in lo['threads_4']['arrivals_s']]} s); batches equal, "
+            f"records their draws")
+    finally:
+        shutil.rmtree(FRAMES_DIR, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    state["frames"] = res
+    log(f"phase frames: ok in {res['seconds']:.1f} s")
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""The data layer: codecs (no PIL or cv2), augmentors, dataset index
-builders, synthetic warped pairs and the batch loader."""
+"""The data layer: codecs (no PIL or cv2; JPEG and PNG decoded natively),
+augmentors, dataset indexes, synthetic warped pairs and the batch
+loaders (threads: `pipeline.py`; worker processes: `grain_pipeline.py`)."""
 
 from raft_optical_flow_tpu_torch.data.frame_utils import (
     read_disp_kitti,

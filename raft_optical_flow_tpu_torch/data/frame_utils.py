@@ -1,23 +1,42 @@
-"""Flow and image file codecs without PIL or cv2: Middlebury .flo, .pfm, PPM
-and PNG, with KITTI's 16-bit flow PNGs.
+"""Flow and image file codecs without PIL or cv2: Middlebury .flo, .pfm, PPM,
+PNG (with KITTI's 16-bit flow PNGs) and JPEG.
 
 Counterpart of `raft_optical_flow_tpu/data/frame_utils.py`. The JAX package
-reads PNGs with PIL and KITTI's 3-channel 16-bit PNGs with cv2; neither is on
-the card's machine, so PNG is decoded here: the chunks and zlib (stdlib),
-then the row un-filter in the native library (`native/png.cpp`), then numpy
-unpacking. `read_png` returns what `np.array(PIL.Image.open(path))` returns
-for every file PIL writes: 8-bit grey, grey+alpha, RGB and RGBA as uint8,
-1-bit grey as bool, 2- and 4-bit grey scaled to 0-255, palette images as
-their indices (uint8), 16-bit grey as uint16; 16-bit RGB, RGBA and
-grey+alpha come out as uint16 (PIL truncates those to 8 bits; cv2 does
-not). Adam7-interlaced files raise NotImplementedError. `write_png` writes
-8- and 16-bit RGB, filter 0.
+reads PNG and JPEG frames with PIL and KITTI's 3-channel 16-bit PNGs with
+cv2; neither is on the card's machine, so both are decoded here.
+
+PNG: the chunks and zlib (stdlib), then the row un-filter in the native
+library (`native/png.cpp`), then numpy unpacking; Adam7-interlaced files
+un-filter each of the seven passes with its own row width and scatter them
+into the frame. Two readers, each following one of the JAX package's:
+  - `read_png` follows cv2 (`IMREAD_UNCHANGED`) in keeping every bit: 8-bit
+    grey, grey+alpha, RGB and RGBA as uint8, every 16-bit type as uint16,
+    1-bit grey as bool, 2- and 4-bit grey scaled to 0-255, palette images as
+    their indices (uint8). `read_flow_kitti` and `read_disp_kitti` read the
+    16 bits through it, as the JAX package reads them through cv2.
+  - `read_gen` follows PIL (`np.array(Image.open(path))`) for frames: the
+    same, except that 16-bit RGB, RGBA and grey+alpha come out as uint8,
+    the high byte of each sample, as PIL reads them ("RGB;16B"), grey+alpha
+    as [H, W, 4] (grey, grey, grey, alpha: PIL opens it as RGBA); 16-bit
+    grey stays uint16 (PIL's "I;16").
+`write_png` writes 8- and 16-bit RGB, filter 0.
+
+JPEG: `decode_jpeg` and `read_jpeg` go through the native decoder
+(`native/jpeg.cpp`: baseline and progressive Huffman coding, libjpeg's
+ISLOW IDCT, fancy upsampling and YCbCr->RGB, bit for bit with PIL on
+libjpeg-turbo); the output is PIL's: [H, W, 3] uint8 for YCbCr and RGB
+files, [H, W] for grey, [H, W, 4] for CMYK (inverted, as PIL reads Adobe
+CMYK). libjpeg's block smoothing is not applied: a progressive file whose
+scans leave low coefficients unrefined raises NotImplementedError, as do
+arithmetic coding, lossless and hierarchical files, 12-bit precision and
+YCCK; a truncated or corrupt stream raises ValueError. The numpy versions of
+its pixel stages (`jpeg_idct_plain`, `jpeg_upsample_plain`,
+`jpeg_ycc_rgb_plain`) are the tests' oracles for the native ones.
 
 The .flo, PFM and PPM readers and the un-filter go through the native
 library (`data/native.py`, built on first use; a failed build raises); the
 `*_plain` functions are their numpy versions, the tests' oracles. `read_gen`
-returns numpy arrays where the JAX one returns PIL images; JPEG is not
-decoded (NotImplementedError).
+returns numpy arrays where the JAX one returns PIL images.
 """
 
 from __future__ import annotations
@@ -36,6 +55,9 @@ FLO_MAGIC = 202021.25
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # PNG color type -> channels
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Adam7's seven passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 _PPM_FIELD = re.compile(rb"(?:\s|#[^\n]*\n)*(\d+)")  # whitespace and comments, a number
 
 
@@ -168,8 +190,26 @@ def png_unfilter_plain(rows: np.ndarray, height: int, row_bytes: int, bpp: int) 
         prev = x.astype(np.int32)
 
 
+def _png_image(rows: np.ndarray, h: int, w: int, ch: int, depth: int, color: int,
+               unfilter) -> np.ndarray:
+    """Un-filter one (sub)image's rows in place and unpack them -> [h, w, ch]."""
+    row_bytes = (w * ch * depth + 7) // 8
+    unfilter(rows, h, row_bytes, max(1, ch * depth // 8))
+    px = rows[: h * (row_bytes + 1)].reshape(h, row_bytes + 1)[:, 1:]
+    if depth == 16:
+        return px.view(">u2").reshape(h, w, ch).astype(np.uint16)
+    if depth == 8:
+        return px.reshape(h, w, ch)
+    # 1, 2, 4 bits: one channel (grey or palette), packed big-endian
+    bits = np.unpackbits(px, axis=1).reshape(h, -1, depth)
+    out = (bits @ (1 << np.arange(depth - 1, -1, -1))).astype(np.uint8)[:, :w, None]
+    if color == 0:  # PIL's "1" is bool; "L;2" and "L;4" scale to 0-255
+        out = out.astype(bool) if depth == 1 else out * np.uint8(255 // (2 ** depth - 1))
+    return out
+
+
 def decode_png(data: bytes, unfilter=native.png_unfilter_native) -> np.ndarray:
-    """PNG bytes -> numpy array (see the module docstring for the types)."""
+    """PNG bytes -> numpy array (`read_png`'s types; see the module docstring)."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
     pos, idat, ihdr = 8, [], None
@@ -189,29 +229,35 @@ def decode_png(data: bytes, unfilter=native.png_unfilter_native) -> np.ndarray:
     if ihdr is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, color, _, _, interlace = ihdr
-    if interlace:
-        raise NotImplementedError("Adam7-interlaced PNG is not decoded")
     ch = _PNG_CHANNELS.get(color)
     if ch is None or depth not in {0: (1, 2, 4, 8, 16), 3: (1, 2, 4, 8)}.get(color, (8, 16)):
         raise ValueError(f"PNG color type {color}, bit depth {depth}")
-    row_bytes = (w * ch * depth + 7) // 8
+    if interlace not in (0, 1):
+        raise ValueError(f"PNG interlace method {interlace}")
+    if not idat:
+        raise ValueError("PNG without IDAT")
     rows = np.frombuffer(bytearray(zlib.decompress(b"".join(idat))), np.uint8)
-    unfilter(rows, h, row_bytes, max(1, ch * depth // 8))
-    px = rows[: h * (row_bytes + 1)].reshape(h, row_bytes + 1)[:, 1:]
-    if depth == 16:
-        out = px.view(">u2").reshape(h, w, ch).astype(np.uint16)
-    elif depth == 8:
-        out = px.reshape(h, w, ch)
-    else:  # 1, 2, 4 bits: one channel (grey or palette), packed big-endian
-        bits = np.unpackbits(px, axis=1).reshape(h, -1, depth)
-        out = (bits @ (1 << np.arange(depth - 1, -1, -1))).astype(np.uint8)[:, :w, None]
-        if color == 0:  # PIL's "1" is bool; "L;2" and "L;4" scale to 0-255
-            out = out.astype(bool) if depth == 1 else out * np.uint8(255 // (2 ** depth - 1))
+    if not interlace:
+        out = _png_image(rows, h, w, ch, depth, color, unfilter)
+    else:  # Adam7: each pass is a small image of its own, rows filtered on their own
+        out, off = None, 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+            if pw <= 0 or ph <= 0:
+                continue  # an empty pass has no bytes, not even filter bytes
+            n = ph * ((pw * ch * depth + 7) // 8 + 1)
+            part = _png_image(rows[off: off + n], ph, pw, ch, depth, color, unfilter)
+            if out is None:
+                out = np.zeros((h, w, ch), part.dtype)
+            out[y0::dy, x0::dx] = part
+            off += n
     out = np.ascontiguousarray(out)
     return out[..., 0] if ch == 1 else out
 
 
 def read_png(path: str) -> np.ndarray:
+    """PNG file -> numpy array, every bit kept (cv2's types; see the module
+    docstring); `read_gen` gives PIL's."""
     with open(path, "rb") as f:
         return decode_png(f.read())
 
@@ -238,6 +284,106 @@ def encode_png(img: np.ndarray) -> bytes:
 def write_png(path: str, img: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(encode_png(img))
+
+
+# -- JPEG ----------------------------------------------------------------------
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> what `np.array(PIL.Image.open(...))` gives (native
+    decoder; see the module docstring)."""
+    return native.jpeg_decode_native(data)
+
+
+def read_jpeg(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        return decode_jpeg(f.read())
+
+
+# jidctint.c's FIX() constants at CONST_BITS = 13
+_FIX = {"0_298": 2446, "0_390": 3196, "0_541": 4433, "0_765": 6270, "0_899": 7373,
+        "1_175": 9633, "1_501": 12299, "1_847": 15137, "1_961": 16069, "2_053": 16819,
+        "2_562": 20995, "3_072": 25172}
+
+
+def _idct_1d(v: np.ndarray, shift: int) -> np.ndarray:
+    """jpeg_idct_islow's 1-D pass on the last axis (int64), descaled by shift."""
+    f = _FIX
+    z2, z3 = v[..., 2], v[..., 6]
+    z1 = (z2 + z3) * f["0_541"]
+    tmp2, tmp3 = z1 - z3 * f["1_847"], z1 + z2 * f["0_765"]
+    tmp0, tmp1 = (v[..., 0] + v[..., 4]) << 13, (v[..., 0] - v[..., 4]) << 13
+    t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    t0, t1, t2, t3 = v[..., 7], v[..., 5], v[..., 3], v[..., 1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * f["1_175"]
+    z3, z4 = z5 - z3 * f["1_961"], z5 - z4 * f["0_390"]
+    z1, z2 = -z1 * f["0_899"], -z2 * f["2_562"]
+    t0 = t0 * f["0_298"] + z1 + z3
+    t1 = t1 * f["2_053"] + z2 + z4
+    t2 = t2 * f["3_072"] + z2 + z3
+    t3 = t3 * f["1_501"] + z1 + z4
+    out = (t10 + t3, t11 + t2, t12 + t1, t13 + t0, t13 - t0, t12 - t1, t11 - t2, t10 - t3)
+    return (np.stack(out, -1) + (1 << (shift - 1))) >> shift
+
+
+def jpeg_idct_plain(coef: np.ndarray, qtable: np.ndarray) -> np.ndarray:
+    """numpy version of the native dequantize and IDCT (libjpeg's
+    jpeg_idct_islow; its zero-column and zero-row short cuts give the same
+    values and are left out): [N, 64] int16 coefficients in natural order and
+    a [64] table -> [N, 8, 8] uint8, each centred sample x mapped through
+    the range-limit table at x & 1023 (clamped near range, wrapped far out)."""
+    deq = np.asarray(coef, np.int64).reshape(-1, 8, 8) * np.asarray(qtable, np.int64).reshape(8, 8)
+    ws = _idct_1d(deq.transpose(0, 2, 1), 11).transpose(0, 2, 1)  # columns, PASS1_BITS kept
+    x = _idct_1d(ws, 18) & 1023  # rows; CONST_BITS + PASS1_BITS + 3
+    return np.where(x < 128, x + 128, np.where(x < 512, 255, np.where(x < 896, 0, x - 896))
+                    ).astype(np.uint8)
+
+
+def jpeg_upsample_plain(plane: np.ndarray, hexp: int, vexp: int) -> np.ndarray:
+    """numpy version of the native upsampling of one [h, w] uint8 plane by
+    (hexp, vexp) -> [h * vexp, w * hexp]: libjpeg's fancy h2v1 and h2v2 (w
+    over 2) and h1v2 triangles, else replication; edges replicated."""
+    p = np.asarray(plane, np.int32)
+    h, w = p.shape
+
+    def horizontal(s, bias_l, bias_r, shift):  # 3/4 near + 1/4 far across the columns
+        left = np.concatenate([s[:, :1], s[:, :-1]], 1)
+        right = np.concatenate([s[:, 1:], s[:, -1:]], 1)
+        out = np.empty((s.shape[0], 2 * w), np.int32)
+        out[:, 0::2] = (3 * s + left + bias_l) >> shift
+        out[:, 1::2] = (3 * s + right + bias_r) >> shift
+        return out
+
+    if vexp == 2 and (hexp == 1 or (hexp == 2 and w > 2)):
+        up = 3 * p + np.concatenate([p[:1], p[:-1]], 0)  # the row above weighs 1/4
+        down = 3 * p + np.concatenate([p[1:], p[-1:]], 0)
+        out = np.empty((2 * h, hexp * w), np.int32)
+        if hexp == 1:
+            out[0::2], out[1::2] = (up + 1) >> 2, (down + 2) >> 2
+        else:
+            out[0::2], out[1::2] = horizontal(up, 8, 7, 4), horizontal(down, 8, 7, 4)
+    elif (hexp, vexp) == (2, 1) and w > 2:
+        out = horizontal(p, 1, 2, 2)
+    else:
+        out = np.repeat(np.repeat(p, vexp, 0), hexp, 1)
+    return out.astype(np.uint8)
+
+
+def jpeg_ycc_rgb_plain(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """numpy version of the native YCbCr -> RGB (jdcolor.c's tables at
+    SCALEBITS = 16, ONE_HALF rounding) -> [..., 3] uint8."""
+    x = np.arange(256, dtype=np.int64) - 128
+    half = 1 << 15
+
+    def fix(c):
+        return int(c * 65536 + 0.5)
+
+    cr_r, cb_b = (fix(1.402) * x + half) >> 16, (fix(1.772) * x + half) >> 16
+    cr_g, cb_g = -fix(0.71414) * x, -fix(0.34414) * x + half
+    y, cb, cr = (np.asarray(a).astype(np.int64) for a in (y, cb, cr))
+    rgb = np.stack([y + cr_r[cr], y + ((cb_g[cb] + cr_g[cr]) >> 16), y + cb_b[cb]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
 
 
 # -- KITTI ---------------------------------------------------------------------
@@ -271,14 +417,20 @@ def read_disp_kitti(path: str) -> Tuple[np.ndarray, np.ndarray]:
 
 def read_gen(file_name: str):
     """Extension-dispatched reader (`core/utils/frame_utils.py:123-137`):
-    images as numpy arrays (uint8, or what `read_png` returns), flows float32."""
+    images as the numpy arrays PIL gives (see the module docstring), flows
+    float32."""
     ext = os.path.splitext(file_name)[-1].lower()
     if ext == ".ppm":
         return read_ppm(file_name)
     if ext == ".png":
-        return read_png(file_name)
+        img = read_png(file_name)
+        if img.dtype == np.uint16 and img.ndim == 3:  # 16-bit RGB, RGBA, grey+alpha
+            img = (img >> 8).astype(np.uint8)  # PIL keeps each sample's high byte
+            if img.shape[2] == 2:  # and opens 16-bit grey+alpha as RGBA
+                img = img[..., [0, 0, 0, 1]]
+        return img
     if ext in (".jpeg", ".jpg"):
-        raise NotImplementedError(f"{file_name}: JPEG is not decoded (no PIL or cv2 on the card)")
+        return read_jpeg(file_name)
     if ext in (".bin", ".raw"):
         return np.load(file_name)
     if ext == ".flo":

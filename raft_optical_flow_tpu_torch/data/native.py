@@ -2,11 +2,11 @@
 
 Counterpart of `raft_optical_flow_tpu/data/native.py`, with a build of its
 own: the sources `native/flowdata.cpp` (the .flo, PPM and PFM decoders, the
-port's copy) and `native/png.cpp` (the PNG row un-filter) are compiled on
-first use by
+port's copy), `native/png.cpp` (the PNG row un-filter) and `native/jpeg.cpp`
+(the baseline and progressive JPEG decoder) are compiled on first use by
 
     g++ -O3 -shared -fPIC -std=c++17 -o _build/libflowdata_<hash>.so \\
-        native/flowdata.cpp native/png.cpp -lpthread
+        native/flowdata.cpp native/png.cpp native/jpeg.cpp -lpthread
 
 into `raft_optical_flow_tpu_torch/_build/` (git-ignored), the file name
 keyed by a hash of the flags and sources, as `kernels/_build.py` keys the
@@ -29,7 +29,7 @@ from typing import List, Optional
 import numpy as np
 
 NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
-SOURCES = ("flowdata.cpp", "png.cpp")
+SOURCES = ("flowdata.cpp", "png.cpp", "jpeg.cpp")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
@@ -73,6 +73,8 @@ def get_lib() -> ctypes.CDLL:
         i32p = ctypes.POINTER(ctypes.c_int32)
         f32p = ctypes.POINTER(ctypes.c_float)
         u8p = ctypes.POINTER(ctypes.c_uint8)
+        i16p = ctypes.POINTER(ctypes.c_int16)
+        u16p = ctypes.POINTER(ctypes.c_uint16)
         I32, I64 = ctypes.c_int32, ctypes.c_int64
         for name, args in (
             ("flo_dims", [ctypes.c_char_p, i32p, i32p]),
@@ -83,6 +85,10 @@ def get_lib() -> ctypes.CDLL:
             ("pfm_dims", [ctypes.c_char_p, i32p, i32p, i32p]),
             ("pfm_read", [ctypes.c_char_p, f32p, I64]),
             ("png_unfilter", [u8p, I64, I64, I32]),
+            ("jpeg_decode", [u8p, I64, u8p, I64, i32p, ctypes.c_char_p, I32]),
+            ("jpeg_idct_blocks", [i16p, u16p, I64, u8p]),
+            ("jpeg_upsample", [u8p, I32, I32, I32, I32, u8p]),
+            ("jpeg_ycc_rgb", [u8p, u8p, u8p, I64, u8p]),
         ):
             fn = getattr(lib, name)
             fn.argtypes = args
@@ -161,3 +167,62 @@ def png_unfilter_native(rows: np.ndarray, height: int, row_bytes: int, bpp: int)
     rc = get_lib().png_unfilter(_ptr(rows, ctypes.c_uint8), height, row_bytes, bpp)
     if rc != 0:
         raise ValueError(f"PNG un-filter failed ({rc}: unknown filter type or bpp {bpp})")
+
+
+def jpeg_decode_native(data: bytes) -> np.ndarray:
+    """JPEG bytes -> [H, W, 3] (YCbCr or RGB), [H, W] (grey) or [H, W, 4]
+    (CMYK, inverted as PIL reads it) uint8. Raises NotImplementedError for
+    a coding the decoder does not take (naming it) and ValueError for a
+    truncated or corrupt stream."""
+    lib = get_lib()
+    src = np.frombuffer(data, np.uint8)
+    dims = np.zeros(3, np.int32)
+    err = ctypes.create_string_buffer(256)
+    rc = lib.jpeg_decode(_ptr(src, ctypes.c_uint8), src.size, None, 0,
+                         _ptr(dims, ctypes.c_int32), err, len(err))
+    if rc == 0:
+        h, w, c = (int(v) for v in dims)
+        out = np.empty((h, w, c), np.uint8)
+        rc = lib.jpeg_decode(_ptr(src, ctypes.c_uint8), src.size, _ptr(out, ctypes.c_uint8),
+                             out.size, _ptr(dims, ctypes.c_int32), err, len(err))
+    msg = err.value.decode(errors="replace")
+    if rc == 1:
+        raise NotImplementedError(f"JPEG: {msg}")
+    if rc != 0:
+        raise ValueError(f"JPEG: {msg}")
+    return out[..., 0] if c == 1 else out
+
+
+def jpeg_idct_native(coef: np.ndarray, qtable: np.ndarray) -> np.ndarray:
+    """[N, 64] int16 coefficients (natural order) and a [64] quantization
+    table -> [N, 8, 8] uint8 samples (the decoder's dequantize and IDCT)."""
+    coef = np.ascontiguousarray(coef, np.int16).reshape(-1, 64)
+    q = np.ascontiguousarray(qtable, np.uint16).reshape(64)
+    out = np.empty((coef.shape[0], 8, 8), np.uint8)
+    get_lib().jpeg_idct_blocks(_ptr(coef, ctypes.c_int16), _ptr(q, ctypes.c_uint16),
+                               coef.shape[0], _ptr(out, ctypes.c_uint8))
+    return out
+
+
+def jpeg_upsample_native(plane: np.ndarray, hexp: int, vexp: int) -> np.ndarray:
+    """One [h, w] uint8 plane upsampled by (hexp, vexp) as the decoder does
+    it -> [h * vexp, w * hexp] uint8."""
+    plane = np.ascontiguousarray(plane, np.uint8)
+    h, w = plane.shape
+    out = np.empty((h * vexp, w * hexp), np.uint8)
+    if get_lib().jpeg_upsample(_ptr(plane, ctypes.c_uint8), h, w, hexp, vexp,
+                               _ptr(out, ctypes.c_uint8)) != 0:
+        raise ValueError(f"bad upsampling arguments {plane.shape} x ({hexp}, {vexp})")
+    return out
+
+
+def jpeg_ycc_rgb_native(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """Same-shape uint8 Y, Cb, Cr -> [..., 3] uint8 RGB (the decoder's colour
+    conversion)."""
+    planes = [np.ascontiguousarray(p, np.uint8) for p in (y, cb, cr)]
+    if not planes[0].shape == planes[1].shape == planes[2].shape:
+        raise ValueError("Y, Cb and Cr differ in shape")
+    out = np.empty((*planes[0].shape, 3), np.uint8)
+    get_lib().jpeg_ycc_rgb(*(_ptr(p, ctypes.c_uint8) for p in planes), planes[0].size,
+                           _ptr(out, ctypes.c_uint8))
+    return out

@@ -43,9 +43,9 @@ class FlowDataLoader:
     each global batch, each sample with the RNG of (seed, epoch, index), so
     the shards put together are the one-process batch bit for bit.
 
-    This loader also stands in for the JAX package's
-    `data/grain_pipeline.py::GrainFlowLoader`: grain is not on the card's
-    machine, and the same deterministic sharded stream needs no more.
+    Its samples are loaded by a thread pool; `data/grain_pipeline.py::
+    GrainFlowLoader` is the process-worker loader, with the JAX package's
+    per-record draws.
     """
 
     def __init__(

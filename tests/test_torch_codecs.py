@@ -180,14 +180,23 @@ def test_png_writer_read_by_pil_and_cv2(tmp_path, dtype):
         fu.write_png(path, img[..., 0])
 
 
-def test_png_interlaced_raises():
+def test_png_interlaced_raises(tmp_path):
+    """An Adam7 PNG header with no image data raises ValueError (Adam7 files
+    decode: tests/test_torch_jpeg.py), and `read_gen` on a .jpg and a .jpeg
+    returns PIL's array (it raised NotImplementedError before JPEG was
+    decoded)."""
     ihdr = struct.pack(">IIBBBBB", 4, 4, 8, 2, 0, 0, 1)
     body = fu.PNG_SIGNATURE + struct.pack(">I", 13) + b"IHDR" + ihdr \
         + struct.pack(">I", zlib.crc32(b"IHDR" + ihdr))
-    with pytest.raises(NotImplementedError, match="Adam7"):
+    with pytest.raises(ValueError, match="IDAT"):
         fu.decode_png(body)
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        fu.read_gen("frame.jpg")
+    img = np.random.RandomState(8).randint(0, 256, (13, 21, 3)).astype(np.uint8)
+    for name in ("frame.jpg", "frame.jpeg"):
+        path = str(tmp_path / name)
+        Image.fromarray(img).save(path, "JPEG", quality=90)
+        ref = np.array(Image.open(path))
+        got = fu.read_gen(path)
+        assert got.dtype == ref.dtype and got.shape == ref.shape and np.array_equal(got, ref)
 
 
 @pytest.mark.parametrize("bpp", [1, 2, 3, 4, 6, 8])

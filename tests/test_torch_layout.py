@@ -77,7 +77,8 @@ def test_sources_found():
                 ("utils", "torch_convert.py"), ("utils", "export.py"),
                 ("utils", "grad_parity.py"), ("utils", "profiling.py"), ("utils", "logging.py"),
                 ("parallel", "__init__.py"), ("parallel", "distributed.py"),
-                ("parallel", "mesh.py"), ("parallel", "spatial.py")):
+                ("parallel", "mesh.py"), ("parallel", "spatial.py"),
+                ("data", "grain_pipeline.py")):
         assert os.path.join(PORT, *rel) in srcs
 
 
