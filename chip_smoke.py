@@ -148,17 +148,24 @@ code is not 0):
             the goldens' params) on the Sintel scene, PNGs read back;
   frames    the frame decoders and the process-worker loader: every committed
             fixture (tests/goldens/jpeg/: JPEGs written by Pillow and cv2,
-            Adam7 PNGs of every colour type and depth) read by `read_gen`
-            and held equal to PIL's array (np.array_equal), the 436x1024
-            JPEG pair to the sha256 of PIL's arrays; the pair's decode time
-            on the host (median of 20 reads, one thread); `cli/demo.py`
-            (RAFT-small, checkpoint, 20 iterations) on the pair written
-            twice (three pairs): K1 and K2 20 launches each per pair, each
-            flow equal (torch.equal) to the same frames through the plain
-            lookup, PNGs read back, ms per pair; `GrainFlowLoader` over a
-            chairs tree (batch 10, 368x496 crops) in-process and with 4
-            worker processes, batches equal and each record its (seed, i)
-            draw, pairs/s of both beside FlowDataLoader with 4 threads;
+            and by jpeg_writer.c in the codings those do not write:
+            arithmetic SOF9/SOF10, lossless SOF3, YCCK, progressive files
+            libjpeg smooths; Adam7 PNGs of every colour type and depth)
+            read by `read_gen` and held equal to PIL's array
+            (np.array_equal), the 436x1024 JPEG pairs (Huffman 4:2:0 q95,
+            and arithmetic progressive SOF10 4:2:0 q90) to the sha256 of
+            PIL's arrays; each pair frame's decode time on the host (median
+            of 20 reads, one thread); `cli/demo.py` (RAFT-small, checkpoint,
+            20 iterations) on a folder of both pairs (five pairs, the SOF10
+            pair among them, the Huffman pair twice): K1 and K2 20 launches
+            each per pair, each flow equal (torch.equal) to the same frames
+            through the plain lookup, PNGs read back, ms per pair;
+            `GrainFlowLoader` over a chairs tree (batch 10, 368x496 crops)
+            in-process and with 4 worker processes, every record of every
+            batch the (seed, i) draw of the index that grain's DataLoader
+            gives there at worker_count 0 and 4 (committed:
+            tests/goldens/grain_stream.json), pairs/s of both beside
+            FlowDataLoader with 4 threads;
   utils     the utils (`utils/`): RAFT-small (checkpoint) exported through
             `torch.export` at the JAX defaults (1x440x1024, 20 iterations,
             fp32), saved, loaded and run: flow equal to eager (torch.equal),
@@ -237,7 +244,6 @@ import argparse
 import contextlib
 import dataclasses
 import functools
-import itertools
 import json
 import math
 import os
@@ -2743,6 +2749,9 @@ def phase_data_eval(state):
 
 FRAMES_DIR = os.path.join(REPO, "raft_optical_flow_tpu_torch", "_build", "frames")
 JPEG_GOLDENS = os.path.join(REPO, "tests", "goldens", "jpeg")
+GRAIN_STREAM = os.path.join(REPO, "tests", "goldens", "grain_stream.json")
+PAIRS = {"huffman": ("frame_0001.jpg", "frame_0002.jpg"),  # Pillow, 4:2:0 q95
+         "sof10": ("frame_0001_sof10.jpg", "frame_0002_sof10.jpg")}  # arithmetic, progressive
 FRAMES_DEMO_ITERS = 20  # cli/demo.py's default
 FRAMES_DECODES = 20  # reads per frame for the decode time
 
@@ -2776,16 +2785,18 @@ def _frame_fixtures(workdir):
                 or hashlib.sha256(got.tobytes()).hexdigest() != want["sha256"]):
             raise AssertionError(f"frames: {name} does not decode to PIL's array")
     n_jpeg = sum(n.endswith(".jpg") for n in names)
-    return {"jpeg": n_jpeg, "adam7_png": len(names) - n_jpeg, "pair": sorted(digests)}
+    n_coded = sum("@" in n for n in names)  # jpeg_writer.c's codings
+    return {"jpeg": n_jpeg, "jpeg_codings": n_coded, "adam7_png": len(names) - n_jpeg,
+            "pair": sorted(digests)}
 
 
 def _decode_ms():
-    """The median ms of FRAMES_DECODES reads of each 436x1024 JPEG of the pair
-    (read_jpeg: file read and native decode, one host thread)."""
+    """The median ms of FRAMES_DECODES reads of each 436x1024 JPEG of both
+    pairs (read_jpeg: file read and native decode, one host thread)."""
     from raft_optical_flow_tpu_torch.data import frame_utils as fu
 
     out = {}
-    for name in ("frame_0001.jpg", "frame_0002.jpg"):
+    for name in PAIRS["huffman"] + PAIRS["sof10"]:
         path = os.path.join(JPEG_GOLDENS, name)
         fu.read_jpeg(path)
         ts = []
@@ -2798,12 +2809,13 @@ def _decode_ms():
 
 
 def _jpeg_demo(workdir):
-    """`cli/demo.main --small` (checkpoint, 20 iterations) on a folder of the
-    JPEG pair written twice (frame_0001..4.jpg: pairs 1-2, 2-1, 1-2) at
-    436x1024 on the card, under cudnn.deterministic: K1 and K2 20 launches
-    each per pair; each pair's flow equal (torch.equal) to the same padded
-    frames through the plain lookup (same weights); pairs 1 and 3 equal; each
-    PNG read back as (2 x 436, 1024, 3) uint8; ms of each forward (host clock
+    """`cli/demo.main --small` (checkpoint, 20 iterations) on a folder of both
+    JPEG pairs (frame_0001..6.jpg: Huffman 1, 2, SOF10 1, 2, Huffman 1, 2;
+    pairs H1-H2, H2-A1, A1-A2 (the SOF10 pair), A2-H1, H1-H2) at 436x1024 on
+    the card, under cudnn.deterministic: K1 and K2 20 launches each per
+    pair; each pair's flow equal (torch.equal) to the same padded frames
+    through the plain lookup (same weights); pairs 1 and 5 equal; each PNG
+    read back as (2 x 436, 1024, 3) uint8; ms of each forward (host clock
     around a synchronize) and of the whole CLI."""
     import shutil
 
@@ -2815,7 +2827,7 @@ def _jpeg_demo(workdir):
     ckpt = os.path.join(REPO, "checkpoints", "raft_small.npz")
     frames = os.path.join(workdir, "pair")
     os.makedirs(frames, exist_ok=True)
-    for i, name in enumerate(("frame_0001.jpg", "frame_0002.jpg") * 2):
+    for i, name in enumerate(PAIRS["huffman"] + PAIRS["sof10"] + PAIRS["huffman"]):
         shutil.copy(os.path.join(JPEG_GOLDENS, name), os.path.join(frames, f"frame_{i + 1:04d}.jpg"))
     rec = []
 
@@ -2856,18 +2868,21 @@ def _jpeg_demo(workdir):
     shapes = [fu.read_png(p).shape for p in paths]
     dtypes = {fu.read_png(p).dtype for p in paths}
     padded = tuple(rec[0]["inputs"][0].shape)
-    if len(rec) != 3 or len(paths) != 3 or not all(equal):
+    if len(rec) != 5 or len(paths) != 5 or not all(equal):
         raise AssertionError(f"frames: demo flows through K1/K2 equal to the plain lookup's: "
                              f"{equal} ({len(rec)} pairs, {len(paths)} PNGs)")
-    if not torch.equal(rec[0]["flow"], rec[2]["flow"]):
+    if not torch.equal(rec[0]["flow"], rec[4]["flow"]):
         raise AssertionError("frames: the same pair twice gave two flows")
-    if shapes != [(2 * SINTEL_HW[0], SINTEL_HW[1], 3)] * 3 or dtypes != {np.dtype(np.uint8)}:
+    if torch.equal(rec[0]["flow"], rec[2]["flow"]):
+        raise AssertionError("frames: the SOF10 pair gave the Huffman pair's flow")
+    if shapes != [(2 * SINTEL_HW[0], SINTEL_HW[1], 3)] * 5 or dtypes != {np.dtype(np.uint8)}:
         raise AssertionError(f"frames: demo wrote {shapes} {dtypes}")
     if not all(torch.isfinite(r["flow"]).all() for r in rec):
         raise AssertionError("frames: demo flow not finite")
     mag = torch.linalg.vector_norm(rec[0]["flow"].float(), dim=-1)
     return {"pairs": len(rec), "padded": padded, "forward_ms": [r["ms"] for r in rec],
             "ms_per_pair": float(np.median([r["ms"] for r in rec[1:]])),
+            "sof10_pair_ms": rec[2]["ms"], "sof10_launches": rec[2]["launches"],
             "cli_s": cli_s, "launches_per_pair": rec[0]["launches"], "flows_equal_plain": equal,
             "mean_abs_flow": float(mag.mean()), "max_abs_flow": float(mag.max())}
 
@@ -2892,21 +2907,24 @@ def _loader_pairs_per_s(make_iter, warm, batches):
 
 def _grain_loader(workdir, batches=6):
     """The chairs stage (10 training pairs at 384x512, 368x496 crops) through
-    GrainFlowLoader (batch 10) in-process and with 4 worker processes: the
-    batches equal, the records of the processes' first and last batch equal
-    to their (seed, i) draws; pairs/s of the processes (after one batch a
-    worker) and of FlowDataLoader with 4 threads (after one batch) over
+    GrainFlowLoader (batch 10) in-process and with 4 worker processes: every
+    record of every batch equal to the (seed, i) draw of the index grain's
+    DataLoader gives at that batch and place with worker_count 0 and 4
+    (tests/goldens/grain_stream.json, written with grain by
+    tests/torch_jpeg_fixtures.py); pairs/s of the processes (after one batch
+    a worker) and of FlowDataLoader with 4 threads (after one batch) over
     `batches` batches, and in-process over 3."""
     from raft_optical_flow_tpu_torch.data.datasets import fetch_dataset
-    from raft_optical_flow_tpu_torch.data.grain_pipeline import (
-        GrainFlowLoader,
-        _FlowRecordSource,
-        record_stream,
-    )
+    from raft_optical_flow_tpu_torch.data.grain_pipeline import GrainFlowLoader, _FlowRecordSource
     from raft_optical_flow_tpu_torch.data.pipeline import FlowDataLoader
 
+    with open(GRAIN_STREAM) as f:
+        golden = json.load(f)
     roots, n_files, _ = _write_trees(workdir, datasets=("chairs",))
     ds = fetch_dataset("chairs", CHAIRS_CROP, roots={"chairs": roots["chairs"]})
+    if (len(ds), golden["batch_size"], golden["seed"]) != (golden["num_records"], 10, 1234):
+        raise AssertionError(f"frames: {len(ds)} records against the golden's "
+                             f"{golden['num_records']}")
     out = {"files": n_files, "records": len(ds)}
     got = {}
     for workers, warm, n in ((0, 1, 3), (4, 4, batches)):
@@ -2914,16 +2932,20 @@ def _grain_loader(workdir, batches=6):
             lambda w=workers: iter(GrainFlowLoader(ds, 10, num_workers=w, seed=1234)), warm, n)
     out["threads_4"], _ = _loader_pairs_per_s(
         lambda: FlowDataLoader(ds, batch_size=10, num_workers=4, seed=1234).epochs(), 1, batches)
-    for a, b in zip(got[0], got[4]):
-        if not all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a):
-            raise AssertionError("frames: GrainFlowLoader's worker processes changed a batch")
     src = _FlowRecordSource(ds, 1234)
-    stream = list(itertools.islice(record_stream(len(ds), True, 1234), 10 * len(got[4])))
-    for j in (0, len(got[4]) - 1):
-        for r in range(10):
-            want = src[stream[10 * j + r]]
-            if not all(np.array_equal(got[4][j][k][r], want[k]) for k in want):
-                raise AssertionError("frames: a GrainFlowLoader record is not its (seed, i) draw")
+    draws = {}
+    for workers, batches_got in got.items():
+        want = golden["batches"][str(workers)]
+        if len(batches_got) > len(want):
+            raise AssertionError(f"frames: {len(batches_got)} batches, the golden has {len(want)}")
+        for j, batch in enumerate(batches_got):
+            for r, i in enumerate(want[j]):
+                if i not in draws:
+                    draws[i] = src[i]
+                if not all(np.array_equal(batch[k][r], draws[i][k]) for k in draws[i]):
+                    raise AssertionError(f"frames: GrainFlowLoader ({workers} workers) batch {j} "
+                                         f"record {r} is not record {i}, grain's")
+        out[f"grain_{workers}"]["records_checked"] = 10 * len(batches_got)
     if got[4][0]["image1"].shape != (10, *CHAIRS_CROP, 3):
         raise AssertionError(f"frames: loader batch {got[4][0]['image1'].shape}")
     return out
@@ -2937,38 +2959,39 @@ def phase_frames(state):
     t0 = time.perf_counter()
     shutil.rmtree(FRAMES_DIR, ignore_errors=True)
     res = {}
-    try:
-        tb = time.perf_counter()
-        native.get_lib()
-        res["native_build_s"] = time.perf_counter() - tb
-        res["fixtures"] = fx = _frame_fixtures(os.path.join(FRAMES_DIR, "fixtures"))
-        log(f"frames fixtures: {fx['jpeg']} JPEGs and {fx['adam7_png']} Adam7 PNGs equal to "
-            f"PIL's arrays, the pair {fx['pair']} to PIL's sha256 (native library ready in "
-            f"{res['native_build_s']:.2f} s)")
-        res["decode"] = dec = _decode_ms()
-        log("frames decode (read_jpeg, 436x1024 4:2:0 q95, one host thread, median of "
-            f"{FRAMES_DECODES}): " + ", ".join(f"{k} {v['median_ms']:.3f} ms"
-                                               for k, v in dec.items()))
-        reset_all()
-        res["demo"] = d = _jpeg_demo(FRAMES_DIR)
-        log(f"frames demo (cli/demo RAFT-small, {FRAMES_DEMO_ITERS} iterations, JPEG pair "
-            f"{SINTEL_HW} padded to {d['padded']}): {d['pairs']} pairs, forward ms "
-            f"{[round(t, 3) for t in d['forward_ms']]} ({d['ms_per_pair']:.3f} ms/pair after the "
-            f"first), the CLI {d['cli_s']:.2f} s; launches per pair {d['launches_per_pair']}; "
-            f"flows equal to the plain lookup's {d['flows_equal_plain']}; |flow| mean "
-            f"{d['mean_abs_flow']:.3f} max {d['max_abs_flow']:.3f}")
-        res["loader"] = lo = _grain_loader(os.path.join(FRAMES_DIR, "trees"))
-        log(f"frames loader (chairs {lo['records']} pairs, batch 10, {CHAIRS_CROP} crops): "
-            f"GrainFlowLoader in-process {lo['grain_0']['pairs_per_s']:.2f} pairs/s, 4 worker "
-            f"processes {lo['grain_4']['pairs_per_s']:.2f} (4 batches first in "
-            f"{lo['grain_4']['warm_s']:.2f} s; arrivals "
-            f"{[round(t, 2) for t in lo['grain_4']['arrivals_s']]} s), FlowDataLoader 4 "
-            f"threads {lo['threads_4']['pairs_per_s']:.2f} (first batch "
-            f"{lo['threads_4']['warm_s']:.2f} s; arrivals "
-            f"{[round(t, 2) for t in lo['threads_4']['arrivals_s']]} s); batches equal, "
-            f"records their draws")
-    finally:
-        shutil.rmtree(FRAMES_DIR, ignore_errors=True)
+    tb = time.perf_counter()
+    native.get_lib()
+    res["native_build_s"] = time.perf_counter() - tb
+    res["fixtures"] = fx = _frame_fixtures(os.path.join(FRAMES_DIR, "fixtures"))
+    log(f"frames fixtures: {fx['jpeg']} JPEGs ({fx['jpeg_codings']} of them arithmetic, "
+        f"lossless, YCCK or smoothed progressive) and {fx['adam7_png']} Adam7 PNGs equal to "
+        f"PIL's arrays, the pairs {fx['pair']} to PIL's sha256 (native library ready in "
+        f"{res['native_build_s']:.2f} s)")
+    res["decode"] = dec = _decode_ms()
+    log("frames decode (read_jpeg, 436x1024 4:2:0, Huffman q95 and SOF10 q90, one host thread, "
+        f"median of {FRAMES_DECODES}): " + ", ".join(f"{k} {v['median_ms']:.3f} ms"
+                                                    for k, v in dec.items()))
+    reset_all()
+    res["demo"] = d = _jpeg_demo(FRAMES_DIR)
+    log(f"frames demo (cli/demo RAFT-small, {FRAMES_DEMO_ITERS} iterations, JPEG pairs "
+        f"{SINTEL_HW} padded to {d['padded']}): {d['pairs']} pairs, forward ms "
+        f"{[round(t, 3) for t in d['forward_ms']]} ({d['ms_per_pair']:.3f} ms/pair after the "
+        f"first; the SOF10 pair {d['sof10_pair_ms']:.3f}), the CLI {d['cli_s']:.2f} s; launches "
+        f"per pair {d['launches_per_pair']} (SOF10 pair {d['sof10_launches']}); flows equal to "
+        f"the plain lookup's {d['flows_equal_plain']}; |flow| mean {d['mean_abs_flow']:.3f} max "
+        f"{d['max_abs_flow']:.3f}")
+    res["loader"] = lo = _grain_loader(os.path.join(FRAMES_DIR, "trees"))
+    log(f"frames loader (chairs {lo['records']} pairs, batch 10, {CHAIRS_CROP} crops): "
+        f"GrainFlowLoader in-process {lo['grain_0']['pairs_per_s']:.2f} pairs/s, 4 worker "
+        f"processes {lo['grain_4']['pairs_per_s']:.2f} (4 batches first in "
+        f"{lo['grain_4']['warm_s']:.2f} s; arrivals "
+        f"{[round(t, 2) for t in lo['grain_4']['arrivals_s']]} s), FlowDataLoader 4 "
+        f"threads {lo['threads_4']['pairs_per_s']:.2f} (first batch "
+        f"{lo['threads_4']['warm_s']:.2f} s; arrivals "
+        f"{[round(t, 2) for t in lo['threads_4']['arrivals_s']]} s); records in grain's order "
+        f"({lo['grain_0']['records_checked']} in-process, {lo['grain_4']['records_checked']} "
+        f"from the processes)")
+    shutil.rmtree(FRAMES_DIR, ignore_errors=True)
     res["seconds"] = time.perf_counter() - t0
     state["frames"] = res
     log(f"phase frames: ok in {res['seconds']:.1f} s")

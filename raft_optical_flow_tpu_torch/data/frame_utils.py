@@ -22,16 +22,19 @@ into the frame. Two readers, each following one of the JAX package's:
 `write_png` writes 8- and 16-bit RGB, filter 0.
 
 JPEG: `decode_jpeg` and `read_jpeg` go through the native decoder
-(`native/jpeg.cpp`: baseline and progressive Huffman coding, libjpeg's
-ISLOW IDCT, fancy upsampling and YCbCr->RGB, bit for bit with PIL on
-libjpeg-turbo); the output is PIL's: [H, W, 3] uint8 for YCbCr and RGB
-files, [H, W] for grey, [H, W, 4] for CMYK (inverted, as PIL reads Adobe
-CMYK). libjpeg's block smoothing is not applied: a progressive file whose
-scans leave low coefficients unrefined raises NotImplementedError, as do
-arithmetic coding, lossless and hierarchical files, 12-bit precision and
-YCCK; a truncated or corrupt stream raises ValueError. The numpy versions of
-its pixel stages (`jpeg_idct_plain`, `jpeg_upsample_plain`,
-`jpeg_ycc_rgb_plain`) are the tests' oracles for the native ones.
+(`native/jpeg.cpp`): Huffman and arithmetic coding, sequential (SOF0, SOF1,
+SOF9), progressive (SOF2, SOF10) and lossless (SOF3); libjpeg's ISLOW IDCT,
+its block smoothing of progressive files whose scans leave low
+coefficients unrefined, fancy upsampling and YCbCr->RGB, bit for bit with
+PIL on libjpeg-turbo. The output is PIL's: [H, W, 3] uint8 for YCbCr and
+RGB files, [H, W] for grey, [H, W, 4] for CMYK and YCCK (inverted, as PIL
+reads Adobe CMYK). What PIL does not open either raises NotImplementedError
+naming it: lossless arithmetic (SOF11), hierarchical files (SOF5-SOF7,
+SOF13-SOF15) and precisions other than 8 bits; a truncated or corrupt
+stream raises ValueError. The numpy versions of its pixel stages
+(`jpeg_idct_plain`, `jpeg_upsample_plain`, `jpeg_ycc_rgb_plain`,
+`jpeg_ycck_cmyk_plain`, `jpeg_smooth_plain`, `jpeg_undifference_plain`)
+are the tests' oracles for the native ones.
 
 The .flo, PFM and PPM readers and the un-filter go through the native
 library (`data/native.py`, built on first use; a failed build raises); the
@@ -384,6 +387,109 @@ def jpeg_ycc_rgb_plain(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndar
     y, cb, cr = (np.asarray(a).astype(np.int64) for a in (y, cb, cr))
     rgb = np.stack([y + cr_r[cr], y + ((cb_g[cb] + cr_g[cr]) >> 16), y + cb_b[cb]], -1)
     return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def jpeg_ycck_cmyk_plain(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+                         k: np.ndarray) -> np.ndarray:
+    """numpy version of the native YCCK -> CMYK (jdcolor.c::ycck_cmyk_convert:
+    YCbCr -> RGB, then 255 minus each; K unchanged) -> [..., 4] uint8."""
+    rgb = jpeg_ycc_rgb_plain(y, cb, cr)
+    return np.concatenate([255 - rgb, np.asarray(k, np.uint8)[..., None]], -1)
+
+
+# libjpeg-turbo's block smoothing (jdcoefct.c::decompress_smooth_data): for
+# coefficients 1-9 (zigzag), the natural position and the weights on the
+# 5x5 DC window with DC interpolation (no AC coefficient coded at all) and
+# without it (the 5x5 cross; coefficients 6-9 are then not estimated)
+_SMOOTH = (
+    (1, [[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3], [-3, 13, 0, -13, 3],
+         [-1, -1, 0, 1, 1]],
+     [[0] * 5, [0] * 5, [-7, 50, 0, -50, 7], [0] * 5, [0] * 5]),
+    (8, None, None),  # AC10: the transpose of AC01
+    (16, [[0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0], [0, 2, 7, 2, 0], [0, 0, 1, 0, 0]],
+     [[0, 0, -1, 0, 0], [0, 0, 13, 0, 0], [0, 0, -24, 0, 0], [0, 0, 13, 0, 0], [0, 0, -1, 0, 0]]),
+    (9, [[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0] * 5, [0, -9, 0, 9, 0], [1, 0, 0, 0, -1]],
+     [[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], [0] * 5, [1, -10, 0, 10, -1], [0, 1, 0, -1, 0]]),
+    (2, None, None),  # AC02: the transpose of AC20
+    (3, [[0] * 5, [0, 1, 0, -1, 0], [0, 2, 0, -2, 0], [0, 1, 0, -1, 0], [0] * 5], None),
+    (10, [[0] * 5, [0, 1, -3, 1, 0], [0] * 5, [0, -1, 3, -1, 0], [0] * 5], None),
+    (17, None, None),  # AC21: the transpose of AC12
+    (24, None, None),  # AC30: the transpose of AC03
+)
+_SMOOTH_DC = [[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6], [-8, 42, 152, 42, -8],
+              [-6, 6, 42, 6, -6], [-2, -6, -8, -6, -2]]
+
+
+def _smooth_weights():
+    out = []
+    for i, (pos, interp, cross) in enumerate(_SMOOTH):
+        if interp is None:  # the transpose of an earlier one
+            src = {1: 0, 4: 2, 7: 6, 8: 5}[i]
+            interp = np.asarray(out[src][1]).T
+            cross = None if out[src][2] is None else np.asarray(out[src][2]).T
+        out.append((pos, np.asarray(interp), None if cross is None else np.asarray(cross)))
+    return out
+
+
+def jpeg_smooth_plain(coef: np.ndarray, dc: np.ndarray, qtable: np.ndarray,
+                      coef_bits: np.ndarray) -> np.ndarray:
+    """numpy version of the native block-smoothing estimate of each block:
+    [N, 64] coefficients (natural order), [N, 25] the 5x5 DC values around
+    each (row by row, its own at 12), a [64] quantization table, coef_bits
+    of coefficients 0-9 (the Al each was last coded at, -1 never) -> [N, 64]
+    int16. A coefficient still zero and short of full precision gets
+    Q00 * (weights . DC) / Q_k, rounded half away from zero and capped at
+    2**Al - 1; with no AC coefficient coded the DC is re-estimated too."""
+    out = np.array(coef, np.int64).reshape(-1, 64)
+    dcs = np.asarray(dc, np.int64).reshape(-1, 25)
+    q = np.asarray(qtable, np.int64).reshape(64)
+    bits = [int(b) for b in np.asarray(coef_bits).reshape(10)]
+    change_dc = all(b == -1 for b in bits[1:])
+
+    def estimate(weights, qk, al):
+        num = q[0] * (dcs @ np.asarray(weights).reshape(25))
+        pred = ((qk << 7) + np.abs(num)) // (qk << 8)
+        if al > 0:
+            pred = np.minimum(pred, (1 << al) - 1)
+        return np.where(num >= 0, pred, -pred)
+
+    for e, (pos, interp, cross) in enumerate(_smooth_weights()):
+        al = bits[e + 1]
+        weights = interp if change_dc else cross
+        if al == 0 or weights is None:
+            continue
+        est = estimate(weights, q[pos], al)
+        out[:, pos] = np.where(out[:, pos] == 0, est, out[:, pos])
+    if change_dc:
+        out[:, 0] = estimate(_SMOOTH_DC, q[0], 0)
+    return out.astype(np.int16)
+
+
+def jpeg_undifference_plain(diff: np.ndarray, prev: Optional[np.ndarray], psv: int,
+                            precision: int = 8, pt: int = 0) -> np.ndarray:
+    """numpy version of the native lossless un-differencing of one row
+    (jdlossls.c): sample = (difference + prediction) mod 2**16, the
+    prediction from the left sample Ra, the one above Rb and above-left Rc
+    by predictor psv (1 Ra, 2 Rb, 3 Rc, 4 Ra + Rb - Rc, 5 Ra + (Rb - Rc) / 2,
+    6 Rb + (Ra - Rc) / 2, 7 (Ra + Rb) / 2, halves floored), Rb in the first
+    column; with prev None the row is a first row: 2**(precision - pt - 1),
+    then Ra. -> uint16 samples, before the point transform's scaling."""
+    d = np.asarray(diff, np.int64).reshape(-1)
+    out = np.empty(d.size, np.int64)
+    if prev is None:
+        ra = 1 << (precision - pt - 1)
+        for x in range(d.size):
+            ra = (d[x] + ra) & 0xFFFF
+            out[x] = ra
+        return out.astype(np.uint16)
+    up = np.asarray(prev, np.int64).reshape(-1)
+    out[0] = (d[0] + up[0]) & 0xFFFF
+    for x in range(1, d.size):
+        ra, rb, rc = out[x - 1], up[x], up[x - 1]
+        pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+                6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[psv]
+        out[x] = (d[x] + pred) & 0xFFFF
+    return out.astype(np.uint16)
 
 
 # -- KITTI ---------------------------------------------------------------------

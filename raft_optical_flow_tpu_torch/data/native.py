@@ -3,7 +3,8 @@
 Counterpart of `raft_optical_flow_tpu/data/native.py`, with a build of its
 own: the sources `native/flowdata.cpp` (the .flo, PPM and PFM decoders, the
 port's copy), `native/png.cpp` (the PNG row un-filter) and `native/jpeg.cpp`
-(the baseline and progressive JPEG decoder) are compiled on first use by
+(the JPEG decoder: Huffman and arithmetic, sequential, progressive and
+lossless) are compiled on first use by
 
     g++ -O3 -shared -fPIC -std=c++17 -o _build/libflowdata_<hash>.so \\
         native/flowdata.cpp native/png.cpp native/jpeg.cpp -lpthread
@@ -89,6 +90,9 @@ def get_lib() -> ctypes.CDLL:
             ("jpeg_idct_blocks", [i16p, u16p, I64, u8p]),
             ("jpeg_upsample", [u8p, I32, I32, I32, I32, u8p]),
             ("jpeg_ycc_rgb", [u8p, u8p, u8p, I64, u8p]),
+            ("jpeg_ycck_cmyk", [u8p, u8p, u8p, u8p, I64, u8p]),
+            ("jpeg_smooth_blocks", [i16p, i32p, u16p, i32p, I64, i16p]),
+            ("jpeg_undifference_row", [i32p, u16p, I32, I32, I32, u16p]),
         ):
             fn = getattr(lib, name)
             fn.argtypes = args
@@ -171,7 +175,7 @@ def png_unfilter_native(rows: np.ndarray, height: int, row_bytes: int, bpp: int)
 
 def jpeg_decode_native(data: bytes) -> np.ndarray:
     """JPEG bytes -> [H, W, 3] (YCbCr or RGB), [H, W] (grey) or [H, W, 4]
-    (CMYK, inverted as PIL reads it) uint8. Raises NotImplementedError for
+    (CMYK and YCCK, inverted as PIL reads Adobe CMYK) uint8. Raises NotImplementedError for
     a coding the decoder does not take (naming it) and ValueError for a
     truncated or corrupt stream."""
     lib = get_lib()
@@ -225,4 +229,54 @@ def jpeg_ycc_rgb_native(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.nda
     out = np.empty((*planes[0].shape, 3), np.uint8)
     get_lib().jpeg_ycc_rgb(*(_ptr(p, ctypes.c_uint8) for p in planes), planes[0].size,
                            _ptr(out, ctypes.c_uint8))
+    return out
+
+
+def jpeg_ycck_cmyk_native(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+                          k: np.ndarray) -> np.ndarray:
+    """Same-shape uint8 Y, Cb, Cr, K -> [..., 4] uint8 CMYK (the decoder's
+    YCCK conversion, before PIL's inversion)."""
+    planes = [np.ascontiguousarray(p, np.uint8) for p in (y, cb, cr, k)]
+    if len({p.shape for p in planes}) != 1:
+        raise ValueError("Y, Cb, Cr and K differ in shape")
+    out = np.empty((*planes[0].shape, 4), np.uint8)
+    get_lib().jpeg_ycck_cmyk(*(_ptr(p, ctypes.c_uint8) for p in planes), planes[0].size,
+                             _ptr(out, ctypes.c_uint8))
+    return out
+
+
+def jpeg_smooth_native(coef: np.ndarray, dc: np.ndarray, qtable: np.ndarray,
+                       coef_bits: np.ndarray) -> np.ndarray:
+    """libjpeg's block-smoothing estimate of each block: [N, 64] int16
+    coefficients (natural order), [N, 25] the 5x5 DC values around each
+    (row by row, its own at 12), a [64] quantization table and coef_bits of
+    coefficients 0-9 -> [N, 64] int16."""
+    coef = np.ascontiguousarray(coef, np.int16).reshape(-1, 64)
+    dcs = np.ascontiguousarray(dc, np.int32).reshape(-1, 25)
+    q = np.ascontiguousarray(qtable, np.uint16).reshape(64)
+    bits = np.ascontiguousarray(coef_bits, np.int32).reshape(10)
+    if dcs.shape[0] != coef.shape[0]:
+        raise ValueError(f"{coef.shape[0]} blocks but {dcs.shape[0]} DC windows")
+    out = np.empty_like(coef)
+    get_lib().jpeg_smooth_blocks(_ptr(coef, ctypes.c_int16), _ptr(dcs, ctypes.c_int32),
+                                 _ptr(q, ctypes.c_uint16), _ptr(bits, ctypes.c_int32),
+                                 coef.shape[0], _ptr(out, ctypes.c_int16))
+    return out
+
+
+def jpeg_undifference_native(diff: np.ndarray, prev: Optional[np.ndarray], psv: int,
+                             precision: int = 8, pt: int = 0) -> np.ndarray:
+    """One row of lossless differences -> its samples (uint16, before the
+    point transform's scaling): predictor psv on the row above `prev`, or,
+    with prev None, the first row's 1-D prediction from 2**(precision - pt - 1)."""
+    d = np.ascontiguousarray(diff, np.int32).reshape(-1)
+    out = np.empty(d.size, np.uint16)
+    p = None if prev is None else np.ascontiguousarray(prev, np.uint16).reshape(-1)
+    if p is not None and p.size != d.size:
+        raise ValueError(f"row of {d.size} samples, row above of {p.size}")
+    rc = get_lib().jpeg_undifference_row(
+        _ptr(d, ctypes.c_int32), None if p is None else _ptr(p, ctypes.c_uint16), d.size, psv,
+        1 << (precision - pt - 1), _ptr(out, ctypes.c_uint16))
+    if rc != 0:
+        raise ValueError(f"bad row ({d.size} samples) or predictor {psv}")
     return out

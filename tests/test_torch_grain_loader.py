@@ -2,10 +2,11 @@
 JAX package's.
 
 Each record equals the JAX `_FlowRecordSource(dataset, seed)[i]` bit for bit
-(both draw from default_rng((seed, i))); worker processes give the batches
-that in-process loading gives; each epoch of the stream visits every record
-once; and an epoch holds the same records as the JAX `GrainFlowLoader`'s
-(grain's order is its own, so the records are compared as multisets).
+(both draw from default_rng((seed, i))); worker processes give grain's
+split of the stream (worker w's batches cut from positions w, w + W, ...,
+round-robin); each epoch of the stream visits every record once; and the
+batches equal the JAX `GrainFlowLoader`'s, record for record and in order,
+at num_workers 0 and 2, with and without shuffle.
 """
 
 import hashlib
@@ -22,6 +23,7 @@ from raft_optical_flow_tpu_torch.data import datasets as ds
 from raft_optical_flow_tpu_torch.data.grain_pipeline import (
     GrainFlowLoader,
     _FlowRecordSource,
+    batch_positions,
     record_stream,
 )
 
@@ -71,6 +73,9 @@ def test_records_equal_the_jax_record_source(tmp_path, kind):
 
 
 def test_process_workers_give_the_in_process_batches(tmp_path):
+    """Worker processes give grain's split of the stream: worker w's t-th
+    batch holds positions w + W * (t * B + m), batches round-robin; in-process
+    loading gives consecutive slices."""
     ours, _ = _datasets(tmp_path, "chairs")
     n_batches, bs = 4, 4  # 16 records of 6: the batches cross two epoch boundaries
     got = {}
@@ -79,12 +84,17 @@ def test_process_workers_give_the_in_process_batches(tmp_path):
         got[workers] = [next(it) for _ in range(n_batches)]
         it.close()
     src = _FlowRecordSource(ours, SEED)
-    indices = list(itertools.islice(record_stream(len(ours), True, SEED), n_batches * bs))
-    for a, b in zip(got[0], got[2]):
-        _equal_records(a, b)
+    stream = list(itertools.islice(record_stream(len(ours), True, SEED), n_batches * bs))
+    assert [batch_positions(j, bs, 2) for j in range(4)] == [
+        [0, 2, 4, 6], [1, 3, 5, 7], [8, 10, 12, 14], [9, 11, 13, 15]]
+    for workers in (0, 2):
+        positions = [p for j in range(n_batches) for p in batch_positions(j, bs, workers)]
+        assert sorted(positions) == list(range(n_batches * bs))
+        for p, record in zip(positions, _records(got[workers])):
+            _equal_records(record, src[stream[p]])
+        a = got[workers][0]
         assert a["image1"].shape == (bs, *AUG["crop_size"], 3) and a["image1"].dtype == np.float32
-    for i, record in zip(indices, _records(got[2])):
-        _equal_records(record, src[i])
+    assert not np.array_equal(got[0][1]["image1"], got[2][1]["image1"])
 
 
 @pytest.mark.parametrize("shuffle", [True, False])
@@ -106,12 +116,21 @@ def test_each_epoch_is_a_permutation(tmp_path, shuffle):
         assert sorted(_digest(r) for r in records[e * n:(e + 1) * n]) == want
 
 
-def test_an_epoch_holds_the_jax_loaders_records(tmp_path):
+@pytest.mark.parametrize("workers,shuffle", [(0, True), (0, False), (2, True)])
+def test_an_epoch_holds_the_jax_loaders_records(tmp_path, workers, shuffle):
+    """The port's batches are the JAX loader's (grain's), in order: one grain
+    run for each case, two epochs and a bit of 6 records. (Unshuffled at 2
+    workers, grain's batch order is held by the committed stream in
+    test_torch_grain_order.py: a grain run with workers takes about 12 s.)"""
     pytest.importorskip("grain.python")
     ours, theirs = _datasets(tmp_path, "chairs")
-    n = len(ours)
-    it = iter(GrainFlowLoader(ours, 3, num_workers=0, seed=SEED))
-    jit = iter(jgp.GrainFlowLoader(theirs, 3, num_workers=0, seed=SEED))
-    mine = _records([next(it) for _ in range(n // 3)])
-    jax_records = _records([next(jit) for _ in range(n // 3)])
-    assert sorted(map(_digest, mine)) == sorted(map(_digest, jax_records))
+    n_batches = 5  # 15 records: both epoch boundaries fall inside a batch
+    it = iter(GrainFlowLoader(ours, 3, shuffle=shuffle, num_workers=workers, seed=SEED))
+    jit = iter(jgp.GrainFlowLoader(theirs, 3, shuffle=shuffle, num_workers=workers, seed=SEED))
+    mine = [next(it) for _ in range(n_batches)]
+    jax_batches = [next(jit) for _ in range(n_batches)]
+    it.close()
+    jit.close()
+    assert [_digest(r) for r in _records(mine)] == [_digest(r) for r in _records(jax_batches)]
+    for a, b in zip(mine, jax_batches):
+        _equal_records(a, b)

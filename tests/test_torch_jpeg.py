@@ -7,9 +7,11 @@ markers, grey, CMYK, Adobe RGB, 1x1 and partial-MCU sizes) on real content
 and on noise, and decoded by the port, by PIL and by the JAX package's
 `read_gen`; no case has a tolerance. The numpy versions of the decoder's
 pixel stages are held to the native ones, the committed fixtures (the
-card's oracle) to PIL, and the codings the decoder does not take, and
-truncated streams, must raise. Adam7 PNGs are built here, each pass
-filtered with all five filter types, for every colour type and bit depth.
+card's oracle) to PIL; the codings PIL refuses, and truncated streams, must
+raise, and the ones it decodes (arithmetic, lossless, YCCK, smoothed
+progressive; `test_torch_jpeg_codings.py` holds them all) equal PIL.
+Adam7 PNGs are built here, each pass filtered with all five filter types,
+for every colour type and bit depth.
 """
 
 import functools
@@ -56,7 +58,8 @@ def test_jpeg_decodes_equal_to_pil(tmp_path, case, content):
 def test_committed_small_fixtures_equal_pil(tmp_path):
     g = np.load(os.path.join(fx.GOLDEN_DIR, "small.npz"))
     names = [k[len("file/"):] for k in g.files if k.startswith("file/")]
-    assert len(names) == len(fx.JPEG_CASES) + len(fx.PNG_KINDS)
+    assert len(names) == (len(fx.JPEG_CASES) + len(fx.PNG_KINDS)
+                          + len(fx.CODING_CASES) * len(fx.coding_images()))
     for name in names:
         data, ref = g[f"file/{name}"].tobytes(), g[f"pil/{name}"]
         _same(fx.pil_array(data), ref)  # the golden is what PIL reads here
@@ -69,7 +72,8 @@ def test_committed_small_fixtures_equal_pil(tmp_path):
 def test_committed_pair_equals_pil():
     with open(os.path.join(fx.GOLDEN_DIR, "pair.json")) as f:
         digests = json.load(f)
-    assert sorted(digests) == ["frame_0001.jpg", "frame_0002.jpg"]
+    assert sorted(digests) == ["frame_0001.jpg", "frame_0001_sof10.jpg", "frame_0002.jpg",
+                               "frame_0002_sof10.jpg"]
     for name, want in digests.items():
         path = os.path.join(fx.GOLDEN_DIR, name)
         for arr in (np.array(Image.open(path)), fu.read_gen(path)):
@@ -136,14 +140,49 @@ def test_truncated_jpeg_raises_value_error():
         fu.decode_jpeg(b"\x89PNG\r\n\x1a\n")
 
 
+def test_a_huffman_table_with_an_all_ones_code_raises():
+    """jdhuff.c refuses a table whose codes reach the all-ones code of a
+    length (two 1-bit codes), and PIL with it; the port raises ValueError
+    (and checks each code before it fills its 9-bit lookup)."""
+    data = fx.JPEG_CASES["q75"](_contents()["real"])
+    at = data.index(b"\xff\xc4")
+    end = at + 2 + struct.unpack(">H", data[at + 2:at + 4])[0]
+    bad = data[:at] + _segment(0xC4, b"\x00" + bytes([2] + [0] * 15) + b"\x00\x01") + data[end:]
+    with pytest.raises(OSError):
+        np.array(Image.open(io.BytesIO(bad)))
+    with pytest.raises(ValueError, match="bad Huffman table"):
+        fu.decode_jpeg(bad)
+
+
+def _committed(name):
+    g = np.load(os.path.join(fx.GOLDEN_DIR, "small.npz"))
+    return g[f"file/{name}"].tobytes(), g[f"pil/{name}"]
+
+
 @pytest.mark.parametrize("marker,name", [(0xC9, "SOF9"), (0xCA, "SOF10"), (0xCB, "SOF11"),
                                          (0xC3, "SOF3"), (0xC5, "SOF5")])
 def test_unsupported_codings_raise_naming_the_marker(marker, name):
-    with pytest.raises(NotImplementedError, match=f"{name} "):
+    """SOF11 (lossless arithmetic) and SOF5 (hierarchical), which PIL does not
+    decode, raise naming the marker. SOF9, SOF10 and SOF3 are decoded: a file
+    of that coding equals PIL, and the frame header alone, which is not an
+    image, raises ValueError as any file without a scan does."""
+    if marker in (0xCB, 0xC5):
+        with pytest.raises(NotImplementedError, match=f"{name} "):
+            fu.decode_jpeg(_sof(marker))
+        return
+    with pytest.raises(ValueError, match="EOI before any scan"):
         fu.decode_jpeg(_sof(marker))
+    data, ref = _committed({0xC9: "sof9_420", 0xCA: "sof10_420", 0xC3: "sof3_rgb"}[marker]
+                           + "@real_odd.jpg")
+    assert data[data.index(b"\xff" + bytes([marker])) + 1] == marker
+    _same(fu.decode_jpeg(data), ref)
+    _same(fx.pil_array(data), ref)
 
 
 def test_12_bit_ycck_and_unrefined_progressive_raise():
+    """12-bit frames, which PIL does not open, raise; YCCK and a progressive
+    file whose scans leave coefficients unrefined (libjpeg smooths its
+    blocks) decode equal to PIL."""
     with pytest.raises(NotImplementedError, match="12-bit precision"):
         fu.decode_jpeg(_sof(0xC1, precision=12))
     # CMYK with the Adobe APP14 transform flag set to 2: YCCK
@@ -152,16 +191,13 @@ def test_12_bit_ycck_and_unrefined_progressive_raise():
     assert cmyk[at + 4: at + 9] == b"Adobe"
     ycck = bytearray(cmyk)
     ycck[at + 4 + 11] = 2
-    with pytest.raises(NotImplementedError, match="YCCK"):
-        fu.decode_jpeg(bytes(ycck))
+    _same(fu.decode_jpeg(bytes(ycck)), np.array(Image.open(io.BytesIO(bytes(ycck)))))
     # a progressive file without its last scan (the luma AC refinement):
-    # libjpeg would smooth the blocks, which the port does not
+    # libjpeg smooths the blocks, and so does the port
     data = fx.JPEG_CASES["progressive"](_contents()["real"])
     last_sos = data.rindex(b"\xff\xda")
     unrefined = data[:last_sos] + b"\xff\xd9"
-    np.array(Image.open(io.BytesIO(unrefined)))  # PIL decodes it (smoothed)
-    with pytest.raises(NotImplementedError, match="smoothing"):
-        fu.decode_jpeg(unrefined)
+    _same(fu.decode_jpeg(unrefined), np.array(Image.open(io.BytesIO(unrefined))))
 
 
 # -- Adam7 PNG ---------------------------------------------------------------------

@@ -78,7 +78,7 @@ def test_sources_found():
                 ("utils", "grad_parity.py"), ("utils", "profiling.py"), ("utils", "logging.py"),
                 ("parallel", "__init__.py"), ("parallel", "distributed.py"),
                 ("parallel", "mesh.py"), ("parallel", "spatial.py"),
-                ("data", "grain_pipeline.py")):
+                ("data", "grain_pipeline.py"), ("data", "index_shuffle.py")):
         assert os.path.join(PORT, *rel) in srcs
 
 

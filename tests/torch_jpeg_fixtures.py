@@ -6,18 +6,40 @@ fixtures that let the card check them (its machine has no PIL or cv2).
 This helper imports PIL and cv2, so it runs here and never on the card. It
 writes into `tests/goldens/jpeg/`:
 
-  small.npz    every JPEG case of `JPEG_CASES` on the 37x53 real crop and
-               every Adam7 PNG of `PNG_KINDS` at ADAM7_HW, each as its file's
-               bytes (`file/<name>`) beside PIL's array of it (`pil/<name>`);
+  small.npz    every JPEG case of `JPEG_CASES` on the 37x53 real crop, every
+               case of `CODING_CASES` on each image of `coding_images()`,
+               and every Adam7 PNG of `PNG_KINDS` at ADAM7_HW, each as its
+               file's bytes (`file/<name>`) beside PIL's array of it
+               (`pil/<name>`);
   frame_0001.jpg, frame_0002.jpg
                the `real_frames` pair resized to 436x1024 (cv2, bilinear)
                and written by Pillow at 4:2:0, quality 95;
-  pair.json    the sha256, shape and dtype of PIL's array of each of the two.
+  frame_0001_sof10.jpg, frame_0002_sof10.jpg
+               the same pair written arithmetic-coded and progressive
+               (SOF10) at 4:2:0, quality 90, by `jpeg_writer.c` (each under
+               64 KiB: PIL feeds libjpeg 64 KiB at a time, and libjpeg's
+               arithmetic decoder cannot wait for more data, so PIL fails
+               on an arithmetic-coded segment that crosses such a boundary;
+               at quality 95 the frames are 89 KB and PIL refuses them);
+  pair.json    the sha256, shape and dtype of PIL's array of each of the four;
+
+and `tests/goldens/grain_stream.json`: the record indices of the batches
+that grain's `DataLoader` gives (`IndexSampler`, shuffled, endless;
+`Batch`) at worker_count 0 and 4 for GRAIN_STREAM's dataset size, batch
+size and seed, the order the port's `GrainFlowLoader` must give on the card
+(which has no grain), and unshuffled at worker_count 2 (tier-1 compares
+the port with grain's worker processes once, shuffled; each such grain run
+costs about 12 s).
 
 The JPEG cases are encoded by Pillow (`subsampling`, `progressive`,
 `optimize`, `restart_marker_rows`/`restart_marker_blocks`, grey, CMYK,
 `keep_rgb` for an Adobe-RGB file) and by cv2 (4:4:0 and 4:1:1 sampling,
-progressive, restart intervals). The Adam7 PNGs are built by `png_bytes`:
+progressive, restart intervals). The coding cases are written by
+`jpeg_writer.c`, which `writer()` compiles with gcc: against the system's
+libjpeg-turbo (arithmetic coding with and without a DAC marker, YCCK,
+custom progressive scan scripts that leave coefficients unrefined, so that
+libjpeg smooths the blocks) and against Pillow's bundled libjpeg-turbo 3
+(lossless, `jpeg_enable_lossless`). The Adam7 PNGs are built by `png_bytes`:
 each of the seven passes a small image of its own, its rows filtered with
 all five filter types in turn.
 """
@@ -29,7 +51,9 @@ import io
 import json
 import os
 import struct
+import subprocess
 import sys
+import tempfile
 import zlib
 
 import cv2
@@ -41,6 +65,10 @@ sys.path[:0] = [_TESTS, os.path.dirname(_TESTS)]  # run as a script from anywher
 from torch_data_trees import real_frames  # noqa: E402
 
 GOLDEN_DIR = os.path.join(_TESTS, "goldens", "jpeg")
+GRAIN_STREAM_PATH = os.path.join(_TESTS, "goldens", "grain_stream.json")
+# the card's loader check: chip_smoke.py's chairs tree (10 pairs), batch 10,
+# seed 1234, and as many batches as it takes
+GRAIN_STREAM = {"num_records": 10, "batch_size": 10, "seed": 1234, "batches": 10}
 PAIR_HW = (436, 1024)  # Sintel frames, the demo's serving size
 ADAM7_HW = (40, 44)  # every Adam7 pass at least five rows: each filter type in each pass
 
@@ -97,6 +125,141 @@ JPEG_CASES = {
     "q5": lambda im: pil_jpeg(im, quality=5),
     "q100_444": lambda im: pil_jpeg(im, quality=100, subsampling=0),
 }
+
+
+# -- the codings Pillow and cv2 do not write: jpeg_writer.c --------------------------
+
+
+def _pillow_libjpeg() -> str:
+    import glob
+
+    import PIL
+
+    libs = glob.glob(os.path.join(os.path.dirname(PIL.__file__), os.pardir, "pillow.libs",
+                                  "libjpeg-*.so*"))
+    if not libs:
+        raise FileNotFoundError("no libjpeg in Pillow's bundled libraries")
+    return os.path.abspath(libs[0])
+
+
+_WRITERS = {}
+
+
+def writer(lossless: bool = False) -> str:
+    """jpeg_writer.c compiled against the system's libjpeg-turbo, or (lossless)
+    against Pillow's bundled libjpeg-turbo 3; built once per process."""
+    if lossless not in _WRITERS:
+        out = os.path.join(tempfile.mkdtemp(prefix="jpeg_writer_"), "jw")
+        src = os.path.join(_TESTS, "jpeg_writer.c")
+        if lossless:
+            lib = _pillow_libjpeg()
+            cmd = ["gcc", "-O1", "-DLOSSLESS", "-o", out, src, lib,
+                   f"-Wl,-rpath,{os.path.dirname(lib)}"]
+        else:
+            cmd = ["gcc", "-O1", "-o", out, src, "-ljpeg"]
+        subprocess.run(cmd, check=True, capture_output=True)
+        _WRITERS[lossless] = out
+    return _WRITERS[lossless]
+
+
+def write_jpeg(img: np.ndarray, *args: str, lossless: bool = False) -> bytes:
+    """img [H, W] grey, [H, W, 3] RGB or [H, W, 4] CMYK -> the writer's JPEG."""
+    channels = 1 if img.ndim == 2 else img.shape[2]
+    with tempfile.TemporaryDirectory() as tmp:
+        raw, out = os.path.join(tmp, "in.raw"), os.path.join(tmp, "out.jpg")
+        np.ascontiguousarray(img, np.uint8).tofile(raw)
+        subprocess.run([writer(lossless), raw, out, str(img.shape[1]), str(img.shape[0]),
+                        str(channels), *args], check=True, capture_output=True)
+        with open(out, "rb") as f:
+            return f.read()
+
+
+def strip_markers(data: bytes, marker: int) -> bytes:
+    """data without its marker segments of type `marker` (before the first SOS)."""
+    out, p = bytearray(data[:2]), 2
+    while data[p + 1] != 0xDA:
+        n = 2 + struct.unpack(">H", data[p + 2:p + 4])[0]
+        if data[p + 1] != marker:
+            out += data[p:p + n]
+        p += n
+    return bytes(out + data[p:])
+
+
+def without_last_scan(data: bytes) -> bytes:
+    return data[:data.rindex(b"\xff\xda")] + b"\xff\xd9"
+
+
+def _grey(im):
+    return np.ascontiguousarray(im[..., 1])
+
+
+# name -> (the image's kind: rgb, grey or cmyk; img -> JPEG bytes). Each is
+# one coding that PIL decodes and Pillow's and cv2's encoders do not write.
+_DC_ONLY = "scans=0,1,2:0:0:0:0"
+_DC_AC15 = "scans=0,1,2:0:0:0:0;0:1:5:0:2"
+CODING_CASES = {
+    # arithmetic coding, sequential (SOF9)
+    "sof9_420": ("rgb", lambda im: write_jpeg(im, "arith=1")),
+    "sof9_444": ("rgb", lambda im: write_jpeg(im, "arith=1", "sampling=1x1,1x1,1x1")),
+    "sof9_grey": ("grey", lambda im: write_jpeg(im, "arith=1")),
+    "sof9_420_restart": ("rgb", lambda im: write_jpeg(im, "arith=1", "restart=2")),
+    "sof9_grey_restart": ("grey", lambda im: write_jpeg(im, "arith=1", "restart=1")),
+    "sof9_dac": ("rgb", lambda im: write_jpeg(im, "arith=1", "dac=2,6,12")),
+    "sof9_no_dac": ("rgb", lambda im: strip_markers(write_jpeg(im, "arith=1"), 0xCC)),
+    # arithmetic coding, progressive (SOF10)
+    "sof10_420": ("rgb", lambda im: write_jpeg(im, "arith=1", "progressive=1")),
+    "sof10_444": ("rgb", lambda im: write_jpeg(im, "arith=1", "progressive=1",
+                                               "sampling=1x1,1x1,1x1")),
+    "sof10_grey": ("grey", lambda im: write_jpeg(im, "arith=1", "progressive=1")),
+    "sof10_420_restart": ("rgb", lambda im: write_jpeg(im, "arith=1", "progressive=1",
+                                                       "restart=3")),
+    "sof10_dac": ("rgb", lambda im: write_jpeg(im, "arith=1", "progressive=1", "dac=1,3,2")),
+    "sof10_no_dac": ("rgb", lambda im: strip_markers(
+        write_jpeg(im, "arith=1", "progressive=1"), 0xCC)),
+    # block smoothing: progressive scans that leave coefficients 1-9 unrefined
+    "smooth_unrefined": ("rgb", lambda im: without_last_scan(
+        pil_jpeg(im, quality=90, progressive=True))),
+    "smooth_unrefined_sof10": ("rgb", lambda im: without_last_scan(
+        write_jpeg(im, "arith=1", "progressive=1"))),
+    "smooth_dc_only": ("rgb", lambda im: write_jpeg(im, _DC_ONLY)),
+    "smooth_dc_ac15": ("rgb", lambda im: write_jpeg(im, _DC_AC15)),
+    "smooth_dc_ac15_sof10": ("rgb", lambda im: write_jpeg(im, "arith=1", _DC_AC15)),
+    "smooth_grey_dc": ("grey", lambda im: write_jpeg(im, "scans=0:0:0:0:1")),
+    "smooth_440_split": ("rgb", lambda im: write_jpeg(
+        im, "sampling=1x2,1x1,1x1", "scans=0,1,2:0:0:0:0;0:1:9:0:1;1:1:2:0:3;2:1:63:0:0")),
+    # YCCK (Adobe transform 2), K at full and at half resolution
+    "ycck_11": ("cmyk", lambda im: write_jpeg(im, "space=ycck", "sampling=1x1,1x1,1x1,1x1")),
+    "ycck_22": ("cmyk", lambda im: write_jpeg(im, "space=ycck", "sampling=2x2,1x1,1x1,2x2")),
+    "ycck_k11": ("cmyk", lambda im: write_jpeg(im, "space=ycck", "sampling=2x2,1x1,1x1,1x1")),
+    # lossless (SOF3): predictors 1-7, point transforms 0 and 2, restarts
+    **{f"sof3_p{psv}_pt{pt}": ("grey", lambda im, psv=psv, pt=pt: write_jpeg(
+        im, f"lossless={psv},{pt}", lossless=True)) for psv in range(1, 8) for pt in (0, 2)},
+    "sof3_grey_restart": ("grey", lambda im: write_jpeg(im, "lossless=4,0", "restart_rows=2",
+                                                        lossless=True)),
+    "sof3_rgb": ("rgb", lambda im: write_jpeg(im, "lossless=6,0", "space=rgb", lossless=True)),
+    "sof3_ycc_pt2": ("rgb", lambda im: write_jpeg(im, "lossless=7,2", "space=ycc",
+                                                  lossless=True)),
+    "sof3_rgb_restart": ("rgb", lambda im: write_jpeg(im, "lossless=5,1", "space=rgb",
+                                                      "restart_rows=1", lossless=True)),
+}
+
+
+def coding_images() -> dict:
+    """The images of the coding cases: the 37x53 real crop and noise, and
+    real crops of odd sizes down to 1x1."""
+    c = contents()
+    out = {"real_odd": c["real_odd"], "noise": c["noise"]}
+    for h, w in ((1, 1), (2, 3), (9, 17)):
+        out[f"real_{h}x{w}"] = np.ascontiguousarray(c["real"][:h, :w])
+    return out
+
+
+def coding_image(img: np.ndarray, kind: str) -> np.ndarray:
+    if kind == "grey":
+        return _grey(img)
+    if kind == "cmyk":
+        return _cmyk(img)
+    return img
 
 
 def contents() -> dict:
@@ -213,6 +376,12 @@ def write_fixtures(out_dir: str = GOLDEN_DIR) -> None:
         data = encode(img)
         arrays[f"file/{name}.jpg"] = np.frombuffer(data, np.uint8)
         arrays[f"pil/{name}.jpg"] = pil_array(data)
+    for name, (kind, encode) in CODING_CASES.items():
+        for image_name, image in coding_images().items():
+            data = encode(coding_image(image, kind))
+            key = f"{name}@{image_name}.jpg"
+            arrays[f"file/{key}"] = np.frombuffer(data, np.uint8)
+            arrays[f"pil/{key}"] = pil_array(data)
     for i, kind in enumerate(PNG_KINDS):
         color, depth = PNG_KINDS[kind]
         data = png_bytes(png_samples(kind, ADAM7_HW, i), color, depth, interlace=True)
@@ -221,18 +390,61 @@ def write_fixtures(out_dir: str = GOLDEN_DIR) -> None:
     np.savez_compressed(os.path.join(out_dir, "small.npz"), **arrays)
     digests = {}
     for i, frame in enumerate(pair_frames()):
-        name = f"frame_{i + 1:04d}.jpg"
-        data = pil_jpeg(frame, quality=95, subsampling=2)
-        with open(os.path.join(out_dir, name), "wb") as f:
-            f.write(data)
-        ref = pil_array(data)
-        digests[name] = {"sha256": hashlib.sha256(ref.tobytes()).hexdigest(),
-                         "shape": list(ref.shape), "dtype": str(ref.dtype)}
+        for name, data in ((f"frame_{i + 1:04d}.jpg", pil_jpeg(frame, quality=95, subsampling=2)),
+                           (f"frame_{i + 1:04d}_sof10.jpg",
+                            write_jpeg(frame, "arith=1", "progressive=1", "quality=90",
+                                       "sampling=2x2,1x1,1x1"))):
+            with open(os.path.join(out_dir, name), "wb") as f:
+                f.write(data)
+            ref = pil_array(data)
+            digests[name] = {"sha256": hashlib.sha256(ref.tobytes()).hexdigest(),
+                             "shape": list(ref.shape), "dtype": str(ref.dtype)}
     with open(os.path.join(out_dir, "pair.json"), "w") as f:
         json.dump(digests, f, indent=1)
         f.write("\n")
 
 
+# -- grain's record stream ---------------------------------------------------------
+
+
+class _Indices:
+    """A grain data source whose record i is i."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return np.int64(i)
+
+
+def grain_batches(num_records, batch_size, seed, worker_count, batches, shuffle=True):
+    """The record indices of the first `batches` batches grain's DataLoader
+    gives as the JAX `GrainFlowLoader` sets it up."""
+    import grain.python as gp
+
+    sampler = gp.IndexSampler(num_records=num_records, shard_options=gp.NoSharding(),
+                              shuffle=shuffle, num_epochs=None, seed=seed)
+    loader = gp.DataLoader(data_source=_Indices(num_records), sampler=sampler,
+                           operations=[gp.Batch(batch_size=batch_size, drop_remainder=True)],
+                           worker_count=worker_count)
+    it = iter(loader)
+    return [np.asarray(next(it)).tolist() for _ in range(batches)]
+
+
+def write_grain_stream(path: str = GRAIN_STREAM_PATH) -> None:
+    g = GRAIN_STREAM
+    n, bs, seed, nb = g["num_records"], g["batch_size"], g["seed"], g["batches"]
+    out = dict(g, shuffle=True, batches={str(w): grain_batches(n, bs, seed, w, nb) for w in (0, 4)},
+               batches_no_shuffle={"2": grain_batches(n, bs, seed, 2, nb, shuffle=False)})
+    with open(path, "w") as f:
+        json.dump(out, f)
+        f.write("\n")
+
+
 if __name__ == "__main__":
     write_fixtures()
-    print("wrote", GOLDEN_DIR, sorted(os.listdir(GOLDEN_DIR)))
+    write_grain_stream()
+    print("wrote", GOLDEN_DIR, sorted(os.listdir(GOLDEN_DIR)), "and", GRAIN_STREAM_PATH)
