@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases device,kernels,small,standard,train,ondemand,fused_gru,lfn3,
                                     simple_flow,ifnet,flow_train,data_eval,frames,utils,parallel,
-                                    timing]
+                                    multicard,timing]
 
 Phases (each prints one line when it ends; any failure raises and the exit
 code is not 0):
@@ -206,6 +206,41 @@ code is not 0):
             must be refused), fp32 and bf16, on the frame's query grid, the
             slabs gathered, equal (torch.equal) to one K4 call on the whole
             frame, with K4's bf16 routes of both launches;
+  multicard every visible card when there are two or more (on one card it
+            logs "multicard: 1 card visible, not run" and adds nothing to
+            the result; asked for by --phases with fewer than two cards it
+            fails; it never falls back to gloo), one NCCL process per card
+            (`--parallel-worker multicard`, LOCAL_RANK=i), the numbers for
+            four: (a) the chairs step (RAFT-standard fp32, BatchNorm
+            training, 368x496, 12 iterations, cudnn.deterministic) at
+            global batch 8, 2 rows a card, against one process at 8 on
+            cuda:0 (run by process 0 after the cards' part): phase parallel
+            (b)'s gates (ranks bit for bit equal, generators equal, metrics
+            within rel 1e-5 + abs 1e-6, parameters max |d| < 1e-3 with
+            under 1% over 1e-6, BatchNorm running statistics within 1e-5,
+            48 K1 and 48 K3 launches a step on every rank), ms/step on the
+            cards and on one card (5 steps each after the compared one), the
+            scaling (4-card pairs/s over 1-card pairs/s), and the NCCL
+            kernels' device ms in one step under torch.profiler on rank 0;
+            (b) the same step at global batch 4 on the ('data', 'space')
+            mesh (2, 2) against one process at 4, the same gates ('space'
+            peers bit for bit equal); (c) `spatial_sharded_ondemand_corr`
+            on 4 'space' ranks, a 64x128 fmap (C = 256, 4 levels, radius
+            4), fp32 and bf16, 16-row slabs, a seeded cotangent of the
+            gathered whole taken back, against one K4, K5 and K6 call on
+            the frame on cuda:0: the gathered forward and the fmap1 gradient
+            equal (torch.equal), each level's gradient within max_rel 2e-5
+            (fp32; bf16 levels: one bf16 step of the fp32 sums + 2e-5 *
+            max|ref|), every rank's gradients equal, one launch each of K4,
+            K5, K6 and its prepass per rank; (d) `python -m
+            raft_optical_flow_tpu_torch.cli.train_raft --stage chairs
+            --batch_size 8 --num_steps 3` on phase data_eval's chairs tree
+            with no --dist_* flag (4 processes, each logging its cuda:i),
+            with explicit --dist_* flags over 4 processes, and under
+            CUDA_VISIBLE_DEVICES=0, at once, cudnn.deterministic in every
+            process (a sitecustomize on PYTHONPATH): the first two's
+            weights files equal bit for bit, the third within (a)'s
+            parameter gate. Under 300 s;
   timing    K1, K2, K4, K7 and K8 at the batch-16 serving shapes, K3, K5 and K6 at
             the batch-4 training shapes, each first held against its plain
             version on the inputs it is timed on: kernel, plain version, a
@@ -259,7 +294,8 @@ from raft_optical_flow_tpu_torch.utils.grad_parity import VJP_TOL  # the VJP gat
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "kernels", "small", "standard", "train", "ondemand", "fused_gru", "lfn3",
-          "simple_flow", "ifnet", "flow_train", "data_eval", "frames", "utils", "parallel", "timing")
+          "simple_flow", "ifnet", "flow_train", "data_eval", "frames", "utils", "parallel",
+          "multicard", "timing")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16, dense tensor cores
@@ -2317,7 +2353,7 @@ def _train_flow_cli():
     try:
         trainer = train_flow.main(["--model", "simple_flow", "--unsupervised", "--synthetic",
                                    "--num_steps", "2", "--batch_size", "2", "--image_size", "64",
-                                   "96", "--checkpoint_dir", ckpt])
+                                   "96", "--checkpoint_dir", ckpt, "--device", "cuda:0"])
         weights = flax_to_state_dict(load_flax_checkpoint(os.path.join(ckpt, "simple_flow_unsup.npz")))
         sd = trainer.model.state_dict()
         ok = (trainer.state.step == 2 and weights.keys() == sd.keys()
@@ -2512,7 +2548,8 @@ def _chairs_stage(chairs_root, ckdir):
         trainer = train_raft.main([
             "--name", "chairs_smoke", "--stage", "chairs", "--data_root", chairs_root,
             "--image_size", *map(str, CHAIRS_CROP), "--batch_size", "10", "--num_steps", "3",
-            "--validation", "chairs", "--val_freq", "3", "--checkpoint_dir", ckdir])
+            "--validation", "chairs", "--val_freq", "3", "--checkpoint_dir", ckdir,
+            "--device", "cuda:0"])
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     iters = trainer.stage.iters
@@ -3440,6 +3477,8 @@ def parallel_worker(check, world, rank, port):
             out = _worker_nccl1(port)
         elif check == "gloo2":
             out = _worker_gloo2(world, rank, port)
+        elif check == "multicard":
+            out = _worker_multicard(world, rank, port)
         else:
             out = _worker_spatial(world, rank, port)
     finally:
@@ -3448,9 +3487,11 @@ def parallel_worker(check, world, rank, port):
     return 0
 
 
-def _run_workers(check, ranks, world):
+def _run_workers(check, ranks, world, timeout=600.0, env_of=None):
     """Start this script as `--parallel-worker` processes (one per rank in
-    `ranks`), wait for all, and load what each saved."""
+    `ranks`; env_of(rank): variables added to its environment), wait for
+    all (timeout: seconds for the whole run; a worker that fails or outlasts
+    it ends the others), and load what each saved."""
     import socket
 
     with socket.socket() as s:
@@ -3458,11 +3499,13 @@ def _run_workers(check, ranks, world):
         port = s.getsockname()[1]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-worker",
                                check, str(world), str(r), str(port)],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
+                              env=dict(os.environ, **(env_of(r) if env_of else {})))
              for r in ranks]
+    t0 = time.perf_counter()
     try:
         for p in procs:
-            _, err = p.communicate(timeout=600)
+            _, err = p.communicate(timeout=max(timeout - (time.perf_counter() - t0), 1.0))
             if p.returncode != 0:
                 raise AssertionError(f"parallel {check} worker failed:\n{err[-4000:]}")
     finally:
@@ -3567,6 +3610,380 @@ def phase_parallel(state):
     res["seconds"] = time.perf_counter() - t0
     state["parallel"] = res
     log(f"phase parallel: ok in {res['seconds']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase multicard: every visible card (two or more), one NCCL process each,
+# started by this script (`--parallel-worker multicard`) after phase device
+# has built the kernels; the one-card references run in process 0 on cuda:0
+
+MULTICARD_DIR = os.path.join(REPO, "raft_optical_flow_tpu_torch", "_build", "multicard")
+MC_BATCH = 8  # (a): the global batch (2 rows a card on four)
+MC_TIMED = 5  # steps timed after the compared one, each side
+MC_SPATIAL_HW = (64, 128)  # (c): the fmap (16-row slabs on four cards: K4's 4-row tiles)
+MC_WORKER_TIMEOUT_S = 240.0
+MC_PHASE_LIMIT_S = 300.0
+# cuDNN picks deterministic algorithms in every process of check (d) (no
+# flag of the CLI does it): imported first by each Python the check starts
+MC_SITECUSTOMIZE = "import torch\ntorch.backends.cudnn.deterministic = True\n"
+
+
+def _digest(tensors):
+    """sha256 of the tensors' bytes, in order (ranks compare without
+    shipping their states)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()
+                 if t.numel() else b"")
+    return h.hexdigest()
+
+
+def _mc_step(trainer, batch, n_timed, full=True):
+    """The step compared (from launch counts of 0), then n_timed more for
+    their ms (host clock around a synchronize; under NCCL each step ends
+    with every rank's all-reduce). The parameters and buffers after the
+    first step go with the result when `full`, else only their digest."""
+    metrics, launches, ms0 = _trainer_step(trainer, batch)
+    m = trainer.model
+    params = {k: p.detach().cpu() for k, p in m.named_parameters()}
+    buffers = {k: b.detach().cpu() for k, b in m.named_buffers()}
+    out = {"metrics": metrics, "launches": launches, "ms_first": ms0,
+           "generator": trainer.state.generator.get_state(),
+           "digest": _digest(list(params.values()) + list(buffers.values()))}
+    if full:
+        out.update(params=params, buffers=buffers)
+    out["ms"] = [_trainer_step(trainer, batch)[2] for _ in range(n_timed)]
+    return out
+
+
+def _nccl_profile(trainer, batch):
+    """One more step under torch.profiler (CPU and CUDA activity): device ms
+    of the NCCL kernels (the gradient and BatchNorm all-reduces, each
+    including its wait for the other ranks) and of every kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+    nccl = device = 0.0
+    calls = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = float(us if us is not None else e.self_cuda_time_total)
+        device += us
+        if "nccl" in e.key.lower():
+            nccl += us
+            calls += e.count
+    return {"nccl_ms": nccl / 1e3, "device_ms": device / 1e3, "nccl_kernels": calls}
+
+
+def _mc_spatial(mesh, rank, world):
+    """(c) `spatial_sharded_ondemand_corr` on this rank's 16-row slab (fp32
+    and bf16), the slabs gathered, a seeded cotangent of the whole taken
+    back: the gathered forward, the fmap1 and level gradients (digests),
+    and the launches from the forward to the end of the backward."""
+    from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
+    from raft_optical_flow_tpu_torch.parallel.spatial import (
+        all_gather_rows,
+        spatial_sharded_ondemand_corr,
+    )
+
+    h, w = MC_SPATIAL_HW
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        f1, levels = ondemand_inputs(1, h, w, dt, seed=320)
+        f1 = f1.reshape(1, h, w, -1).requires_grad_(True)
+        levels = [f.requires_grad_(True) for f in levels]
+        coords = serving_coords(1, h, w, seed=321)
+        g = torch.randn(1, h, w, 4 * 81, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(322)).to(dt)
+        torch.cuda.synchronize()
+        co.reset_launches()
+        slab = spatial_sharded_ondemand_corr(f1, levels, coords, 4, mesh, out_dtype=dt)
+        whole = all_gather_rows(slab, mesh)
+        (whole.float() * g.float()).sum().backward()
+        torch.cuda.synchronize()
+        res = {"launches": dict(co.LAUNCHES), "slab_rows": slab.shape[1],
+               "digest": _digest([whole, f1.grad] + [f.grad for f in levels])}
+        if rank == 0:  # one K4, K5 and K6 call on the frame, on this card alone
+            flat1 = f1.detach().reshape(1, h * w, -1).contiguous()
+            fl = [f.detach() for f in levels]
+            flatc = coords.reshape(1, h * w, 2).contiguous()
+            gf = g.reshape(1, h * w, -1).contiguous()
+            ref = co.corr_ondemand_fwd(flat1, fl, flatc, 4, dt).reshape(whole.shape)
+            ref_df1 = co.corr_ondemand_bwd_df1(fl, flatc, gf, 4).to(dt).reshape(f1.shape)
+            ref_df2 = co.corr_ondemand_bwd_df2(flat1, flatc, gf, [tuple(f.shape[1:3]) for f in fl],
+                                               4)
+            res["forward_equal"] = bool(torch.equal(whole, ref))
+            res["df1_equal"] = bool(torch.equal(f1.grad, ref_df1))
+            res["df2"] = []
+            for lvl, (got, r32) in enumerate(zip([f.grad for f in levels], ref_df2)):
+                scale = float(r32.abs().max())
+                d = (got.float() - r32).abs()
+                if dt == torch.float32:  # the K6 gate
+                    ok = bool(d.max() <= 2e-5 * scale)
+                else:  # a bf16 gradient: one bf16 step of the fp32 sums + 2e-5 * max|ref|
+                    ok = bool((d <= bf16_step(r32) + 2e-5 * scale).all())
+                res["df2"].append({"level": lvl, "max_rel": float(d.max()) / max(scale, 1e-30),
+                                   "off_round": int((got != r32.to(dt)).sum()), "ok": ok})
+        out[str(dt)] = res
+        del f1, levels, slab, whole
+        torch.cuda.empty_cache()
+    return out
+
+
+def _worker_multicard(world, rank, port):
+    """Rank `rank` of `world` NCCL processes, one card each (LOCAL_RANK):
+    (a) the chairs step at global batch MC_BATCH on a 1-D 'data' mesh, then
+    MC_TIMED steps for their ms; (b) the same step at global batch
+    2 * (world // 2) on the ('data', 'space') mesh (world // 2, 2); (c) the
+    spatial correlation on world 'space' ranks. Process 0 then takes (a)
+    and (b) alone on its card while the others wait in the next collective:
+    one more step of (a), which process 0 takes under the profiler (after
+    its one-card timings, which the profiler would slow)."""
+    from raft_optical_flow_tpu_torch.parallel import distributed
+    from raft_optical_flow_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from raft_optical_flow_tpu_torch.train.trainer import RAFTTrainer
+
+    if not distributed.initialize(f"127.0.0.1:{port}", world, rank, device="cuda"):
+        raise AssertionError("multicard: no process group")
+    device = torch.device("cuda", torch.cuda.current_device())
+    out = {"device": str(device), "backend": torch.distributed.get_backend()}
+    with deterministic(False):
+        stage, cfg = _parallel_stage(MC_BATCH)
+        mesh = make_mesh()
+        batch = _train_batch(MC_BATCH, seed=331)
+        trainer_a = RAFTTrainer(stage, cfg, mesh=mesh)
+        out["a"] = _mc_step(trainer_a, shard_batch(batch, mesh), MC_TIMED, full=rank == 0)
+        nb = 2 * (world // 2)
+        if world % 2 == 0:
+            stage_b, _ = _parallel_stage(nb)
+            mesh_b = make_mesh(axis_names=("data", "space"), shape=(world // 2, 2))
+            batch_b = _train_batch(nb, seed=332)
+            trainer = RAFTTrainer(stage_b, cfg, mesh=mesh_b)
+            out["b"] = _mc_step(trainer, shard_batch(batch_b, mesh_b), 0, full=rank == 0)
+            out["b"]["coords"] = (mesh_b.coord("data"), mesh_b.coord("space"))
+            del trainer
+        torch.cuda.empty_cache()
+        out["c"] = _mc_spatial(make_mesh(axis_names=("space",)), rank, world)
+        if rank == 0:  # the references on this card alone, no group
+            torch.cuda.empty_cache()
+            ref = RAFTTrainer(stage, cfg, device=device)
+            out["ref_a"] = _mc_step(ref, batch, MC_TIMED)
+            del ref
+            if world % 2 == 0:
+                ref = RAFTTrainer(stage_b, cfg, device=device)
+                out["ref_b"] = _mc_step(ref, batch_b, 0)
+                del ref
+            torch.cuda.empty_cache()
+            out["a"]["profile"] = _nccl_profile(trainer_a, shard_batch(batch, mesh))
+        else:
+            trainer_a.train_step(shard_batch(batch, mesh))  # the profiled step's collectives
+    distributed.barrier(torch.distributed.group.WORLD)
+    return out
+
+
+def _mc_gates(tag, r0, rest, ref):
+    """Phase parallel (b)'s gates: ranks bit for bit equal and generators
+    equal, metrics within rel 1e-5 + abs 1e-6 of the one-card step,
+    parameters max |d| < 1e-3 with under 1% over 1e-6, BatchNorm running
+    statistics within 1e-5, 48 K1 and 48 K3 launches a step."""
+    m0, mr = r0["metrics"], ref["metrics"]
+    ranks_equal = all(r["digest"] == r0["digest"] and r["metrics"] == m0
+                      and torch.equal(r["generator"], r0["generator"]) for r in rest)
+    gen_equal = bool(torch.equal(r0["generator"], ref["generator"]))
+    rel = {k: abs(m0[k] - mr[k]) / max(abs(mr[k]), 1e-30) for k in mr}
+    close = all(abs(m0[k] - mr[k]) <= 1e-5 * abs(mr[k]) + 1e-6 for k in mr)
+    d = torch.cat([(r0["params"][k].double() - ref["params"][k].double()).abs().flatten()
+                   for k in ref["params"]])
+    frac = float((d > 1e-6).double().mean())
+    bn = [k for k in ref["buffers"] if "running" in k]
+    bn_d = max(float((r0["buffers"][k].double() - ref["buffers"][k].double()).abs().max())
+               for k in bn)
+    expect = {"corr_lookup_level": 4 * TRAIN_ITERS, "corr_lookup_level_bwd": 4 * TRAIN_ITERS}
+    for r in [r0] + rest:
+        expect_launches(r["launches"], expect, f"multicard {tag} step")
+    res = {"ranks_equal": ranks_equal, "generator_equal": gen_equal, "metrics_rel": rel,
+           "params_max_abs": float(d.max()), "params_frac_over_1e-6": frac,
+           "bn_max_abs": bn_d, "bn_tensors": len(bn), "launches": r0["launches"]}
+    if not (ranks_equal and gen_equal and close and res["params_max_abs"] < 1e-3
+            and frac < 0.01 and bn_d <= 1e-5):
+        raise AssertionError(f"multicard {tag}: the cards' step is not the one-card step: {res}")
+    return res
+
+
+def _mc_cards(n):
+    """(a)-(c) from one run of n worker processes."""
+    outs = _run_workers("multicard", list(range(n)), n, timeout=MC_WORKER_TIMEOUT_S,
+                        env_of=lambda r: {"LOCAL_RANK": str(r)})
+    r0, rest = outs[0], outs[1:]
+    devices = [o["device"] for o in outs]
+    if devices != [f"cuda:{i}" for i in range(n)] or {o["backend"] for o in outs} != {"nccl"}:
+        raise AssertionError(f"multicard: ranks on {devices}, backends "
+                             f"{[o['backend'] for o in outs]}")
+    res = {"a": _mc_gates("(a)", r0["a"], [o["a"] for o in rest], r0["ref_a"])}
+    a, ra, prof = r0["a"], r0["ref_a"], r0["a"]["profile"]
+    ms_n, ms_1 = float(np.median(a["ms"])), float(np.median(ra["ms"]))
+    res["a"].update({
+        "ms_cards": a["ms"], "ms_one_card": ra["ms"], "median_ms_cards": ms_n,
+        "median_ms_one_card": ms_1, "pairs_per_s_cards": MC_BATCH * 1e3 / ms_n,
+        "pairs_per_s_one_card": MC_BATCH * 1e3 / ms_1, "scaling": ms_1 / ms_n,
+        "ms_rank_medians": [float(np.median(o["a"]["ms"])) for o in outs], **prof,
+        "nccl_share_of_device": prof["nccl_ms"] / max(prof["device_ms"], 1e-9)})
+    log(f"multicard (a) the chairs step (RAFT-standard fp32, BN training, {TRAIN_HW[0]}x"
+        f"{TRAIN_HW[1]}, {TRAIN_ITERS} iterations, cudnn.deterministic) at global batch "
+        f"{MC_BATCH}: {n} NCCL processes on {devices}, {MC_BATCH // n} rows each, against one "
+        f"process at {MC_BATCH} on cuda:0: {json.dumps(res['a'])}")
+    if "b" in r0:
+        res["b"] = _mc_gates("(b)", r0["b"], [o["b"] for o in rest], r0["ref_b"])
+        res["b"]["coords"] = [o["b"]["coords"] for o in outs]
+        log(f"multicard (b) the ('data', 'space') = ({n // 2}, 2) mesh, the step at global batch "
+            f"{2 * (n // 2)} over 'data' against one process: {json.dumps(res['b'])}")
+    else:
+        log(f"multicard (b): {n} cards do not make a ('data', 'space') mesh of 'space' 2, not run")
+    c0 = r0["c"]
+    for dt, v in c0.items():
+        same = all(o["c"][dt]["digest"] == v["digest"] for o in rest)
+        launches = [o["c"][dt]["launches"] for o in outs]
+        one = {"corr_ondemand_fwd": 1, "corr_ondemand_bwd_df1": 1, "corr_ondemand_bwd_df2": 1,
+               "corr_ondemand_df2_plan": 1}
+        ok = (same and v["forward_equal"] and v["df1_equal"] and all(x["ok"] for x in v["df2"])
+              and all(x == one for x in launches)
+              and v["slab_rows"] == MC_SPATIAL_HW[0] // n)
+        log(f"multicard (c) spatial on {n} 'space' ranks, {dt}, fmap {MC_SPATIAL_HW[0]}x"
+            f"{MC_SPATIAL_HW[1]} (C=256, 4 levels, radius 4), {v['slab_rows']}-row slabs, "
+            f"against one K4/K5/K6 call on the frame: ranks equal {same}, forward equal "
+            f"{v['forward_equal']}, df1 equal {v['df1_equal']}, df2 {v['df2']}, launches per "
+            f"rank {launches}")
+        if not ok:
+            raise AssertionError(f"multicard (c) {dt}: {v}, ranks equal {same}, {launches}")
+    res["c"] = {dt: {k: v[k] for k in ("forward_equal", "df1_equal", "df2", "launches")}
+                for dt, v in c0.items()}
+    return res
+
+
+def _mc_cli(n, workdir):
+    """(d) `cli/train_raft.py --stage chairs --batch_size 8 --num_steps 3` on
+    phase data_eval's chairs tree: with no --dist_* flag (the launcher: n
+    processes, each logging its cuda:i), with explicit --dist_* flags over
+    n processes, and under CUDA_VISIBLE_DEVICES=0, all at once; each writes
+    its weights after every step (`--val_freq 1`, no validation). The
+    first two's files are equal bit for bit. The one-card run's step-1
+    weights are held to (a)'s one-step gate, as tests/test_torch_parallel_
+    cli.py holds its runs; its step-3 weights to max |d| < 1e-3 (AdamW's
+    normalized updates carry the reduction order's rounding further each
+    step, past 1e-6 on more than 1% of the weights by step 3)."""
+    roots, _, _ = _write_trees(os.path.join(workdir, "trees"), datasets=("chairs",))
+    site = os.path.join(workdir, "site")
+    os.makedirs(site)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(MC_SITECUSTOMIZE)
+    base = [sys.executable, "-m", "raft_optical_flow_tpu_torch.cli.train_raft", "--stage",
+            "chairs", "--batch_size", str(MC_BATCH), "--num_steps", "3", "--data_root",
+            roots["chairs"], "--image_size", *map(str, CHAIRS_CROP), "--val_freq", "1"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([site, REPO]))
+    env.pop("CUDA_VISIBLE_DEVICES", None)
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    runs = {"launched": [(base, env)], "single": [(base, dict(env, CUDA_VISIBLE_DEVICES="0"))],
+            "explicit": [(base + ["--dist_coordinator", f"127.0.0.1:{port}",
+                                  "--dist_num_processes", str(n), "--dist_process_id", str(i)],
+                          env) for i in range(n)]}
+    procs = {}
+    t0 = time.perf_counter()
+    for name, cmds in runs.items():
+        ck = os.path.join(workdir, name)
+        procs[name] = [subprocess.Popen(cmd + ["--checkpoint_dir", ck], env=e, cwd=REPO,
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True) for cmd, e in cmds]
+    logs, secs = {}, {}
+    try:
+        for name, ps in procs.items():
+            logs[name] = []
+            for p in ps:
+                text, _ = p.communicate(timeout=max(MC_WORKER_TIMEOUT_S - (time.perf_counter()
+                                                                            - t0), 1.0))
+                logs[name].append(text)
+                if p.returncode != 0:
+                    raise AssertionError(f"multicard (d) {name} exited {p.returncode}:\n"
+                                         f"{text[-4000:]}")
+            secs[name] = time.perf_counter() - t0
+    finally:
+        for ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    said = logs["launched"][0]
+    devices = [f"cuda:{i}" for i in range(n)]
+    logged = [any(line.endswith(f"process {i} of {n} on {d}") for line in said.splitlines())
+              for i, d in enumerate(devices)]
+
+    def weights(name, f):
+        with np.load(os.path.join(workdir, name, f"{f}.npz")) as z:
+            return {k: z[k] for k in z.files}
+
+    files = ["raft_1", "raft_2", "raft_3", "raft"]
+    equal = True
+    for f in files:
+        wl, we = weights("launched", f), weights("explicit", f)
+        equal = equal and wl.keys() == we.keys() and all(np.array_equal(wl[k], we[k]) for k in wl)
+    res = {"processes_logged": logged, "launched_equals_explicit": equal,
+           "files": sorted(os.listdir(os.path.join(workdir, "launched"))),
+           "seconds_at_end": secs}
+    for f in ("raft_1", "raft_3"):
+        wl, ws = weights("launched", f), weights("single", f)
+        d = np.concatenate([np.abs(wl[k].astype(np.float64) - ws[k]).ravel() for k in sorted(ws)])
+        res[f"{f}_vs_one_card_max_abs"] = float(d.max())
+        res[f"{f}_vs_one_card_frac_over_1e-6"] = float((d > 1e-6).mean())
+    res["batch_stats_in_file"] = any("batch_stats" in k for k in wl)
+    log(f"multicard (d) cli/train_raft --stage chairs --batch_size {MC_BATCH} --num_steps 3 on "
+        f"the chairs tree (cudnn.deterministic in each process): no --dist_* flag against "
+        f"explicit --dist_* over {n} processes and CUDA_VISIBLE_DEVICES=0: {json.dumps(res)}")
+    if not (all(logged) and equal and res["raft_1_vs_one_card_max_abs"] < 1e-3
+            and res["raft_1_vs_one_card_frac_over_1e-6"] < 0.01
+            and res["raft_3_vs_one_card_max_abs"] < 1e-3 and res["batch_stats_in_file"]):
+        raise AssertionError(f"multicard (d): {res}\n{said[-3000:]}")
+    return res
+
+
+def phase_multicard(state):
+    import shutil
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        if state.get("multicard_asked"):
+            raise AssertionError(f"phase multicard needs two or more cards; {n} visible")
+        log(f"multicard: {n} card visible, not run")
+        return
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    log(f"multicard: {n} cards: {smi.stdout.strip().splitlines()}")
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    shutil.rmtree(MULTICARD_DIR, ignore_errors=True)
+    os.makedirs(PARALLEL_DIR)
+    os.makedirs(MULTICARD_DIR)
+    try:
+        res = _mc_cards(n)
+        res["d"] = _mc_cli(n, MULTICARD_DIR)
+    finally:
+        shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+        shutil.rmtree(MULTICARD_DIR, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    state["multicard"] = res
+    if res["seconds"] > MC_PHASE_LIMIT_S:
+        raise AssertionError(f"phase multicard took {res['seconds']:.1f} s (limit "
+                             f"{MC_PHASE_LIMIT_S} s)")
+    log(f"phase multicard: ok in {res['seconds']:.1f} s")
 
 
 def _bytes_needed(levels, coords_flat, radius, out_itemsize):
@@ -4101,12 +4518,12 @@ def _time_k3(radius, dt):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated subset of " + ",".join(PHASES) + " (default: all)")
     ap.add_argument("--parallel-worker", nargs=4, metavar=("CHECK", "WORLD", "RANK", "PORT"),
                     help=argparse.SUPPRESS)  # a process of phase parallel
     args = ap.parse_args()
-    phases = [p for p in args.phases.split(",") if p]
+    phases = [p for p in (args.phases or ",".join(PHASES)).split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
@@ -4117,7 +4534,7 @@ def main() -> int:
     if args.parallel_worker:
         check, world, rank, port = args.parallel_worker
         return parallel_worker(check, int(world), int(rank), int(port))
-    state = {}
+    state = {"multicard_asked": args.phases is not None and "multicard" in phases}
     t0 = time.perf_counter()
     if "device" not in phases:
         phases.insert(0, "device")

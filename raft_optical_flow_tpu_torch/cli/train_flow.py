@@ -6,8 +6,10 @@ Counterpart of the JAX package's `cli/train_flow.py`, with its flags, but
 `--device` (default cuda) in place of `--platform`. `--dist_coordinator`,
 `--dist_num_processes` and `--dist_process_id` start one process of a
 data-parallel run (one device each, as `cli/train_raft.py`); the batch size
-is the global one. The stage's dataset comes from
-`data/datasets.py::fetch_dataset` (its root overridden by `--data_root`),
+is the global one. Without them, on a host with several cards, the command
+trains on every visible card, one worker process each
+(`parallel/launch.py`; `CUDA_VISIBLE_DEVICES` limits them). The stage's
+dataset comes from `data/datasets.py::fetch_dataset` (its root overridden by `--data_root`),
 augmented and batched by the port's data layer; `--synthetic` trains on
 random tensors instead (the reference's DummyDataset fallback). Examples:
 
@@ -100,9 +102,16 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    """Train; returns the trainer, or the launcher's exit code when the
+    command ran as one worker process per visible card."""
     args = parse_args(argv)
 
-    from raft_optical_flow_tpu_torch.parallel import distributed
+    from raft_optical_flow_tpu_torch.parallel import distributed, launch
+
+    code = launch.over_local_cards("raft_optical_flow_tpu_torch.cli.train_flow",
+                                   sys.argv[1:] if argv is None else argv, args, args.batch_size)
+    if code is not None:
+        return code
 
     # connect to the other processes before any CUDA work (a no-op alone)
     started = distributed.initialize(args.dist_coordinator, args.dist_num_processes,
@@ -155,9 +164,12 @@ def _train(args):
         data_iter = FlowDataLoader(dataset, batch_size=args.batch_size,
                                    num_workers=args.num_workers, seed=args.seed,
                                    num_shards=n, shard_id=shard)
+    if n > 1:
+        print(f"process {mesh.rank} of {n} on {trainer.device}", flush=True)
     trainer.run(data_iter, num_steps=args.num_steps, val_freq=args.val_freq, resume=args.resume)
     return trainer
 
 
 if __name__ == "__main__":
-    main()
+    result = main()
+    sys.exit(result if isinstance(result, int) else 0)

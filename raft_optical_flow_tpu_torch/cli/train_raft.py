@@ -18,7 +18,11 @@ frames instead (`--image_size` at most 168x296). Example:
       --validation chairs --num_steps 100000 --batch_size 10 --lr 4e-4 \\
       --image_size 368 496
 
-Data-parallel on two cards of one host, one command per process:
+On a host with several cards the command above trains on every visible
+card (`parallel/launch.py`: one worker process per card, the batch split
+over them; `CUDA_VISIBLE_DEVICES` limits them, `--device cuda:1` or
+`--device cpu` keeps one process). Across hosts, or by hand, one command
+per process:
 
   python -m raft_optical_flow_tpu_torch.cli.train_raft --stage chairs ... \
       --dist_coordinator localhost:29500 --dist_num_processes 2 --dist_process_id 0
@@ -75,9 +79,16 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    """Train; returns the trainer, or the launcher's exit code when the
+    command ran as one worker process per visible card."""
     args = parse_args(argv)
 
-    from raft_optical_flow_tpu_torch.parallel import distributed
+    from raft_optical_flow_tpu_torch.parallel import distributed, launch
+
+    code = launch.over_local_cards("raft_optical_flow_tpu_torch.cli.train_raft",
+                                   sys.argv[1:] if argv is None else argv, args, args.batch_size)
+    if code is not None:
+        return code
 
     # connect to the other processes before any CUDA work (a no-op alone)
     started = distributed.initialize(args.dist_coordinator, args.dist_num_processes,
@@ -133,6 +144,8 @@ def _train(args):
     if distributed.is_lead_host():
         print(f"Training with {len(dataset)} image pairs on {n} devices / {n} processes "
               f"({trainer.device})")
+    if n > 1:
+        print(f"process {mesh.rank} of {n} on {trainer.device}", flush=True)
     # batch_size is GLOBAL; each process loads only its rows of every batch
     loader = FlowDataLoader(dataset, batch_size=args.batch_size, num_workers=args.num_workers,
                             seed=args.seed, num_shards=n, shard_id=mesh.coord("data"))
@@ -146,4 +159,5 @@ def _train(args):
 
 
 if __name__ == "__main__":
-    main()
+    result = main()
+    sys.exit(result if isinstance(result, int) else 0)

@@ -68,7 +68,7 @@ def _kernels() -> ctypes.CDLL:
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.raft_corr_ondemand_fwd.argtypes = [P, P, P, P, I, P, P, I, I, I, I, I, I, I, P]
         lib.raft_corr_ondemand_fwd.restype = I
-        lib.raft_corr_ondemand_bwd_df1.argtypes = [P, P, P, I, P, P, P, I, I, I, I, I, I, P]
+        lib.raft_corr_ondemand_bwd_df1.argtypes = [P, P, P, I, P, P, P, I, I, I, I, I, I, I, P]
         lib.raft_corr_ondemand_bwd_df1.restype = I
         lib.raft_corr_ondemand_bwd_df2.argtypes = [P, P, P, I, P, LL, P, I, P, P, I, I, I, I,
                                                    I, I, P]
@@ -325,12 +325,16 @@ def corr_ondemand_fwd(f1: torch.Tensor, levels: Sequence[torch.Tensor], coords: 
 
 
 def corr_ondemand_bwd_df1(levels: Sequence[torch.Tensor], coords: torch.Tensor,
-                          g: torch.Tensor, radius: int) -> torch.Tensor:
+                          g: torch.Tensor, radius: int, grid_w: int = 0) -> torch.Tensor:
     """K5: the fmap1 gradient of K4, all levels in one launch.
 
     levels: [B, Hl, Wl, C] fp32 or bf16 (one dtype, contiguous); coords:
     [B, Q, 2] fp32 level-0; g: [B, Q, L*(2r+1)^2] fp32 or bf16, K4's output
-    cotangent. Returns df1 [B, Q, C] fp32 (fp32 sums, no atomics).
+    cotangent. Returns df1 [B, Q, C] fp32 (fp32 sums, no atomics). grid_w:
+    the width of the query grid, as for `corr_ondemand_fwd`: the bf16
+    kernel's tiles of 4 grid rows x 16 queries (0: level 0's width when
+    Q = H0 * W0, else 16). A slab of a frame's rows given the frame's width
+    gets the frame's tiles, and so each query its value in the frame.
     """
     B, Q, _ = coords.shape
     if not levels or levels[0].dim() != 4:
@@ -353,7 +357,7 @@ def corr_ondemand_bwd_df1(levels: Sequence[torch.Tensor], coords: torch.Tensor,
         err = lib.raft_corr_ondemand_bwd_df1(
             ctypes.addressof(ptrs), ctypes.addressof(hs), ctypes.addressof(ws), len(levels),
             coords.data_ptr(), g.data_ptr(), df1.data_ptr(), B, Q, C, radius,
-            _DTYPE_CODE[levels[0].dtype], _DTYPE_CODE[g.dtype],
+            _DTYPE_CODE[levels[0].dtype], _DTYPE_CODE[g.dtype], grid_w,
             torch.cuda.current_stream().cuda_stream,
         )
     _check(err, "corr_ondemand_bwd_df1")
@@ -459,20 +463,26 @@ class OndemandCorr(torch.autograd.Function):
     """K4 with K5 and K6 as its backward (or, with impl='plain', their plain
     versions on any device).
 
-    apply(impl, f1, coords, radius, out_dtype, *levels) -> [B, Q, L*(2r+1)^2];
-    f1 [B, Q, C], coords [B, Q, 2] fp32, levels [B, Hl, Wl, C], each level a
-    tensor argument of its own so autograd sees it. Saves only its inputs, so
-    non-reentrant `torch.utils.checkpoint` recomputes K4 in the backward. The
-    gradients come out of K5 and K6 in fp32 and are cast to the inputs'
-    dtypes; the coords gradient is None (RAFT detaches coords before every
-    lookup; the JAX package returns zeros).
+    apply(impl, f1, coords, radius, out_dtype, grid_w, reduce_df2, *levels)
+    -> [B, Q, L*(2r+1)^2]; f1 [B, Q, C], coords [B, Q, 2] fp32, levels
+    [B, Hl, Wl, C], each level a tensor argument of its own so autograd sees
+    it. grid_w: the query grid's width for K4's and K5's bf16 tiles (0: the
+    kernels' default; the plain versions do not read it). reduce_df2: None,
+    or a function that takes the fp32 level gradients (a list) and returns
+    them reduced, e.g. summed over processes, before they are cast to the
+    levels' dtype. Saves only its inputs, so non-reentrant
+    `torch.utils.checkpoint` recomputes K4 in the backward. The gradients
+    come out of K5 and K6 in fp32 and are cast to the inputs' dtypes; the
+    coords gradient is None (RAFT detaches coords before every lookup; the
+    JAX package returns zeros).
     """
 
     @staticmethod
-    def forward(ctx, impl, f1, coords, radius, out_dtype, *levels):
+    def forward(ctx, impl, f1, coords, radius, out_dtype, grid_w, reduce_df2, *levels):
         ctx.save_for_backward(f1, coords, *levels)
-        ctx.impl, ctx.radius = impl, radius
-        return _IMPLS[impl][0](f1, levels, coords, radius, out_dtype)
+        ctx.impl, ctx.radius, ctx.reduce_df2 = impl, radius, reduce_df2
+        ctx.grid = {"grid_w": grid_w} if impl == "cuda" else {}
+        return _IMPLS[impl][0](f1, levels, coords, radius, out_dtype, **ctx.grid)
 
     @staticmethod
     def backward(ctx, g):
@@ -481,13 +491,15 @@ class OndemandCorr(torch.autograd.Function):
         g = g.contiguous()
         df1 = None
         if ctx.needs_input_grad[1]:
-            df1 = bwd_df1(levels, coords, g, ctx.radius).to(f1.dtype)
+            df1 = bwd_df1(levels, coords, g, ctx.radius, **ctx.grid).to(f1.dtype)
         df2s = [None] * len(levels)
-        if any(ctx.needs_input_grad[5:]):
+        if any(ctx.needs_input_grad[7:]):
             shapes = [tuple(f.shape[1:3]) for f in levels]
-            df2s = [d.to(f.dtype) for d, f in zip(bwd_df2(f1, coords, g, shapes, ctx.radius),
-                                                  levels)]
-        return (None, df1, None, None, None, *df2s)
+            df2s = bwd_df2(f1, coords, g, shapes, ctx.radius)
+            if ctx.reduce_df2 is not None:
+                df2s = ctx.reduce_df2(df2s)
+            df2s = [d.to(f.dtype) for d, f in zip(df2s, levels)]
+        return (None, df1, None, None, None, None, None, *df2s)
 
 
 _IMPLS = {
@@ -500,7 +512,7 @@ def _pyramid(impl, fmap1, f2_levels, coords, radius, out_dtype):
     B, h, w, C = fmap1.shape
     f1 = fmap1.reshape(B, h * w, C).contiguous()
     flat = coords.reshape(B, h * w, 2).float().contiguous()
-    out = OndemandCorr.apply(impl, f1, flat, radius, out_dtype,
+    out = OndemandCorr.apply(impl, f1, flat, radius, out_dtype, 0, None,
                              *[f.contiguous() for f in f2_levels])
     return out.reshape(B, h, w, -1)
 

@@ -1376,13 +1376,13 @@ void launch_df1(const Levels& lv, const void* coords, const void* g, void* df1,
 
 template <typename TG, int R>
 cudaError_t launch_df1_tiled(const Levels& lv, const void* coords, const void* g, void* df1,
-                             int B, int Q, int C, cudaStream_t s) {
+                             int B, int Q, int C, int grid_w, cudaStream_t s) {
   auto kernel = ondemand_bwd_df1_tiled_kernel<TG, R>;
   const size_t smem = df1_smem<R>();
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const TileGrid tg = tile_grid(lv, B, Q);
+  const TileGrid tg = tile_grid(lv, B, Q, grid_w);
   if (tg.tiles > 0x7fffffff) return cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)tg.tiles, (unsigned)(C / kUnitC));
   kernel<<<grid, kTileWarps * 32, smem, s>>>(lv, static_cast<const float*>(coords),
@@ -1394,11 +1394,11 @@ cudaError_t launch_df1_tiled(const Levels& lv, const void* coords, const void* g
 
 template <typename T, typename TG>
 cudaError_t df1_by_shape(const Levels& lv, const void* coords, const void* g, void* df1, int B,
-                         int Q, int C, int radius, cudaStream_t s) {
+                         int Q, int C, int radius, int grid_w, cudaStream_t s) {
   const int64_t bq = (int64_t)B * Q;
   if constexpr (sizeof(T) == 2) {
-    return radius == 4 ? launch_df1_tiled<TG, 4>(lv, coords, g, df1, B, Q, C, s)
-                       : launch_df1_tiled<TG, 3>(lv, coords, g, df1, B, Q, C, s);
+    return radius == 4 ? launch_df1_tiled<TG, 4>(lv, coords, g, df1, B, Q, C, grid_w, s)
+                       : launch_df1_tiled<TG, 3>(lv, coords, g, df1, B, Q, C, grid_w, s);
   } else {
     if (radius == 4) {
       if (C == 256) launch_df1<T, TG, 4, 8>(lv, coords, g, df1, bq, Q, C, s);
@@ -1495,15 +1495,17 @@ extern "C" int raft_corr_ondemand_fwd_routes(long long* counts) {
 
 // fmap2 levels [B, Hl, Wl, C] (f2_dtype), coords [B, Q, 2] fp32 level-0,
 // g [B, Q, n_levels*K*K] (g_dtype), df1 [B, Q, C] fp32 (every element written).
+// grid_w: the query grid's width for the bf16 kernel's tiles, as for
+// raft_corr_ondemand_fwd (0: level 0's when Q = H0 * W0, else 16).
 extern "C" int raft_corr_ondemand_bwd_df1(const void* const* level_ptrs, const int* level_h,
                                           const int* level_w, int n_levels,
                                           const void* coords, const void* g, void* df1,
                                           int B, int Q, int C, int radius, int f2_dtype,
-                                          int g_dtype, void* stream) {
+                                          int g_dtype, int grid_w, void* stream) {
   Levels lv;
   if (!fill_levels(&lv, level_ptrs, level_h, level_w, n_levels) ||
       !kernel_shape_ok(B, Q, C, radius) || f2_dtype < 0 || f2_dtype > 1 || g_dtype < 0 ||
-      g_dtype > 1)
+      g_dtype > 1 || grid_w < 0)
     return (int)cudaErrorInvalidValue;
   const int64_t bq = (int64_t)B * Q;
   if (bq == 0) return (int)cudaSuccess;
@@ -1511,10 +1513,10 @@ extern "C" int raft_corr_ondemand_bwd_df1(const void* const* level_ptrs, const i
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (f2_dtype * 2 + g_dtype) {
-    case 0: err = df1_by_shape<float, float>(lv, coords, g, df1, B, Q, C, radius, s); break;
-    case 1: err = df1_by_shape<float, __nv_bfloat16>(lv, coords, g, df1, B, Q, C, radius, s); break;
-    case 2: err = df1_by_shape<__nv_bfloat16, float>(lv, coords, g, df1, B, Q, C, radius, s); break;
-    default: err = df1_by_shape<__nv_bfloat16, __nv_bfloat16>(lv, coords, g, df1, B, Q, C, radius, s); break;
+    case 0: err = df1_by_shape<float, float>(lv, coords, g, df1, B, Q, C, radius, grid_w, s); break;
+    case 1: err = df1_by_shape<float, __nv_bfloat16>(lv, coords, g, df1, B, Q, C, radius, grid_w, s); break;
+    case 2: err = df1_by_shape<__nv_bfloat16, float>(lv, coords, g, df1, B, Q, C, radius, grid_w, s); break;
+    default: err = df1_by_shape<__nv_bfloat16, __nv_bfloat16>(lv, coords, g, df1, B, Q, C, radius, grid_w, s); break;
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

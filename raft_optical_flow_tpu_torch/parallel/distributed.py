@@ -152,10 +152,11 @@ def fetch_replicated(tree):
     return tree
 
 
-def assert_batch_divisible(global_batch_size: int) -> int:
+def assert_batch_divisible(global_batch_size: int, n: Optional[int] = None) -> int:
     """The per-process batch size; raises if the global batch does not
-    split evenly over the processes."""
-    n = process_info()[1]
+    split evenly over the processes (the run's, or n of them)."""
+    if n is None:
+        n = process_info()[1]
     if global_batch_size % n:
         raise ValueError(f"global batch size {global_batch_size} not divisible by "
                          f"process count {n}")

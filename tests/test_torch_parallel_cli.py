@@ -18,7 +18,11 @@ with `--dist_coordinator/--dist_num_processes/--dist_process_id` and
     checkpoint directory without the step-2 state, as a run killed between
     the two steps leaves it) and resumed across fresh processes is the
     straight 2-process run (rtol 1e-5, atol 1e-6, as the JAX test: the same
-    topology sums in the same order).
+    topology sums in the same order);
+  - `cli/train_raft.py` started through the launcher's spawn path
+    (`parallel/launch.py::run_workers`, 2 workers, the same arguments
+    without `--dist_*`) writes the explicit 2-process run's files, bit for
+    bit.
 """
 
 import os
@@ -39,13 +43,17 @@ CLIS = {
 }
 
 
+def _args(cli, ckpt_dir, num_steps, extra=()):
+    return [*CLIS[cli][1], "--num_steps", str(num_steps), "--val_freq", "1", "--num_workers", "1",
+            "--device", "cpu", "--checkpoint_dir", str(ckpt_dir), *extra]
+
+
 def _launch(cli, ckpt_dir, num_steps, num_procs, extra=()):
     port = worker.free_port()
     procs = []
     for i in range(num_procs):
-        cmd = [sys.executable, "-m", f"raft_optical_flow_tpu_torch.cli.{cli}", *CLIS[cli][1],
-               "--num_steps", str(num_steps), "--val_freq", "1", "--num_workers", "1",
-               "--device", "cpu", "--checkpoint_dir", str(ckpt_dir), *extra]
+        cmd = [sys.executable, "-m", f"raft_optical_flow_tpu_torch.cli.{cli}",
+               *_args(cli, ckpt_dir, num_steps, extra)]
         if num_procs > 1:
             cmd += ["--dist_coordinator", f"127.0.0.1:{port}", "--dist_num_processes",
                     str(num_procs), "--dist_process_id", str(i)]
@@ -54,14 +62,25 @@ def _launch(cli, ckpt_dir, num_steps, num_procs, extra=()):
     return procs
 
 
+def _run_workers(cli, ckpt_dir, num_steps, num_procs):
+    """The launcher's run of num_procs workers, in a process of its own."""
+    code = ("import sys; from raft_optical_flow_tpu_torch.parallel import launch; "
+            "sys.exit(launch.run_workers(sys.argv[1], sys.argv[3:], int(sys.argv[2])))")
+    cmd = [sys.executable, "-c", code, f"raft_optical_flow_tpu_torch.cli.{cli}", str(num_procs),
+           *_args(cli, ckpt_dir, num_steps)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=worker.REPO, env=worker.env())
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Every run of both CLIs: the first two of each at once, then the
-    resumes."""
+    """Every run of both CLIs: the first two of each and the launcher's at
+    once, then the resumes."""
     root = tmp_path_factory.mktemp("cli_mp")
     dirs = {(cli, run): root / f"{cli}_{run}" for cli in CLIS
             for run in ("single1", "multi2", "multi1r")}
-    procs = []
+    dirs["train_raft", "launch2"] = root / "train_raft_launch2"
+    procs = [_run_workers("train_raft", dirs["train_raft", "launch2"], 2, 2)]
     for cli in CLIS:
         procs += _launch(cli, dirs[cli, "single1"], 1, 1)
         procs += _launch(cli, dirs[cli, "multi2"], 2, 2)
@@ -105,3 +124,13 @@ def test_cli_resume_across_fresh_processes(runs, cli):
     for k in a:
         np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-6, err_msg=k)
     assert any(not np.array_equal(a[k], one[k]) for k in a)  # the resume took a step
+
+
+def test_cli_through_the_launcher_is_the_explicit_processes(runs):
+    name = CLIS["train_raft"][0]
+    launched, explicit = runs["train_raft", "launch2"], runs["train_raft", "multi2"]
+    assert sorted(os.listdir(launched)) == sorted(os.listdir(explicit))
+    for f in (name, f"{name}_1", f"{name}_2"):
+        a, b = _weights(launched, f), _weights(explicit, f)
+        assert a.keys() == b.keys()
+        assert all(np.array_equal(a[k], b[k]) for k in a), f

@@ -11,7 +11,11 @@ multiple of 4 rows, and so the same route per tile and the same values
 (torch.equal, fp32 and bf16). Read as rows of 16 consecutive queries (no
 grid width) its tiles differ, and a bf16 value may round one bf16 step
 apart (the per-query route sums its dots in another order): within one
-bf16 step plus 2e-5 * max|ref|, the repo's K4 bf16 gate.
+bf16 step plus 2e-5 * max|ref|, the repo's K4 bf16 gate. K5 (the fmap1
+gradient) takes the same grid width: on a slab given the frame's, each
+query's gradient is the frame's (torch.equal). The spatial correlation's
+gradients through K4-K6 on one process (no group) are the frame's
+autograd through `ondemand_corr_pyramid_cuda`, bit for bit.
 """
 
 import numpy as np
@@ -76,3 +80,52 @@ def test_spatial_slab_is_the_frame_rows(cuda):
     assert torch.equal(slab, whole[:, :H // 2])
     with pytest.raises(ValueError, match="must divide"):
         spatial_sharded_ondemand_corr(f1[:, 1:], levels, coords[:, 1:], R, mesh)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_slab_on_the_frame_grid_is_the_frame(cuda, dtype):
+    from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
+
+    _, levels, coords = _inputs(cuda, dtype, seed=2)
+    flatc = coords.reshape(1, H * W, 2)
+    g = torch.randn(1, H * W, 4 * (2 * R + 1) ** 2, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3)).to(dtype)
+    whole = co.corr_ondemand_bwd_df1(levels, flatc, g, R)
+    assert torch.equal(whole, co.corr_ondemand_bwd_df1(levels, flatc, g, R, grid_w=W))
+    for q0 in (28 * W, 12 * W):
+        slab = co.corr_ondemand_bwd_df1(levels, flatc[:, q0:].contiguous(),
+                                        g[:, q0:].contiguous(), R, grid_w=W)
+        assert torch.equal(slab, whole[:, q0:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spatial_gradients_of_one_process_are_the_frames(cuda, dtype):
+    from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
+    from raft_optical_flow_tpu_torch.parallel.mesh import Mesh
+    from raft_optical_flow_tpu_torch.parallel.spatial import spatial_sharded_ondemand_corr
+
+    f1, levels, coords = _inputs(cuda, dtype, seed=4)
+    g = torch.randn(1, H, W, 4 * (2 * R + 1) ** 2, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(5))
+    grads = []
+    for fn in (lambda a, ls: spatial_sharded_ondemand_corr(a, ls, coords, R, _one(cuda)),
+               lambda a, ls: co.ondemand_corr_pyramid_cuda(a, ls, coords, R)):
+        a = f1.clone().requires_grad_(True)
+        ls = [f.clone().requires_grad_(True) for f in levels]
+        (fn(a, ls) * g).sum().backward()
+        grads.append([a.grad] + [f.grad for f in ls])
+    assert all(torch.equal(x, y) for x, y in zip(*grads))
+    # process 0 of two, as it sees itself (no group): the frame's gradient in its rows
+    a = f1.clone().requires_grad_(True)
+    half = Mesh(np.arange(2), ("space",), cuda, {})
+    (spatial_sharded_ondemand_corr(a, levels, coords, R, half) * g[:, :H // 2]).sum().backward()
+    ref = co.corr_ondemand_bwd_df1(levels, coords.reshape(1, H * W, 2),
+                                   g.reshape(1, H * W, -1).contiguous(), R).to(dtype)
+    assert torch.equal(a.grad[:, :H // 2], ref.reshape(a.shape)[:, :H // 2])
+    assert not a.grad[:, H // 2:].any()
+
+
+def _one(device):
+    from raft_optical_flow_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(axis_names=("data", "space"), device=device)

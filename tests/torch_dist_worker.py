@@ -21,7 +21,11 @@ one-device path, the reference the multi-process runs are held to. Jobs:
            random crop and shift drawn inside `data_parallel`;
   spatial  `spatial_sharded_ondemand_corr` on a ('data', 'space') mesh of
            shape (1, num_processes) over <dir>/corr.npz's inputs, the slabs
-           gathered.
+           gathered;
+  spatial_grad  the same function's gradients (fmap1 and each level) on the
+           same mesh and inputs, of sum(slab ** 2) (each process its slab
+           loss) and of sum(all_gather_rows(slab) ** 2) (every process the
+           loss of the whole).
 
 Each process writes <dir>/<job>_<num_processes>_<process_id>.npz. One torch
 thread per process.
@@ -198,6 +202,28 @@ def job_spatial(mesh, out, directory, rank):
     out["gathered"] = all_gather_rows(slab, mesh).numpy()
 
 
+def job_spatial_grad(mesh, out, directory, rank):
+    from raft_optical_flow_tpu_torch.parallel.spatial import (
+        all_gather_rows,
+        spatial_sharded_ondemand_corr,
+    )
+
+    with np.load(os.path.join(directory, "corr.npz")) as z:
+        fmap1, coords = torch.from_numpy(z["fmap1"]), torch.from_numpy(z["coords"])
+        pyr = [torch.from_numpy(z[f"level{i}"]) for i in range(int(z["levels"]))]
+        radius = int(z["radius"])
+    for case in ("slab", "whole"):
+        f1 = fmap1.clone().requires_grad_(True)
+        levels = [p.clone().requires_grad_(True) for p in pyr]
+        slab = spatial_sharded_ondemand_corr(f1, levels, coords, radius, mesh)
+        if case == "whole":
+            slab = all_gather_rows(slab, mesh)
+        (slab ** 2).sum().backward()
+        out[f"{case}:df1"] = f1.grad.numpy()
+        for i, p in enumerate(levels):
+            out[f"{case}:df2_{i}"] = p.grad.numpy()
+
+
 def main():
     job, num, pid, port, directory = sys.argv[1:6]
     num, pid = int(num), int(pid)
@@ -205,16 +231,16 @@ def main():
     mesh = None
     if num > 1:
         distributed.initialize(f"127.0.0.1:{port}", num, pid, device="cpu")
-        if job == "spatial":  # a 2-D mesh: the 'space' axis over the processes
+        if job.startswith("spatial"):  # a 2-D mesh: the 'space' axis over the processes
             mesh = make_mesh(axis_names=("data", "space"), shape=(1, num), device="cpu")
         else:
             mesh = make_mesh(device="cpu")
         assert mesh.device == torch.device("cpu") and num in mesh.shape.values()
-    elif job == "spatial":
+    elif job.startswith("spatial"):
         mesh = make_mesh(axis_names=("data", "space"), device="cpu")
     out = {}
-    {"raft_bn": job_raft_bn, "kinds": job_kinds, "spatial": job_spatial}[job](
-        mesh, out, directory, pid)
+    {"raft_bn": job_raft_bn, "kinds": job_kinds, "spatial": job_spatial,
+     "spatial_grad": job_spatial_grad}[job](mesh, out, directory, pid)
     np.savez(os.path.join(directory, f"{job}_{num}_{pid}.npz"), **out)
     distributed.shutdown()
 
