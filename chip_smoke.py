@@ -47,13 +47,17 @@ code is not 0):
             batch-4 bf16 and batch-10 fp32 training shapes, radius 3 and 4,
             far out-of-bounds coords and an empty deepest level, K6 twice bit
             for bit, the prepass equal to its plain version, and the routes
-            K4's bf16 tiles took; RAFT-standard bf16 at
+            K4's tiles took (either dtype); RAFT-standard bf16 at
             1024x440, 32 iterations: batch 16 against the materialized kernel
             path (pairs/s, peak memory of both), batch 1 against the plain
-            on-demand path; RAFT-small fp32 against the golden; one RAFT-small
-            train step through K4-K6 against one through the plain versions,
-            and the kernel step run twice; the bf16 batch-4 368x496 training
-            step, remat off and on (ms/step, peak memory, launches per step);
+            on-demand path; RAFT-standard fp32 at batch 1 (one Sintel pair of
+            `evaluate --alternate_corr`, K4's fp32 route) against the
+            materialized fp32 path; RAFT-small fp32 against the golden; one
+            RAFT-small train step through K4-K6 against one through the plain
+            versions, and the kernel step run twice; the bf16 batch-4 368x496
+            training step, remat off and on, and the fp32 chairs step (batch
+            10, BatchNorm training: K4's and K5's fp32 routes) (ms/step, peak
+            memory, launches per step);
   fused_gru the fused SepConvGRU (`fused_gru`): K7 (sepconv_gru_pass) against
             its plain version pass by pass at the batch-16 bf16 serving shape,
             the batch-4 fp32 training shape, W = 37, the 1-high and 1-wide
@@ -258,7 +262,13 @@ code is not 0):
             field of +-8 px: the ms_smooth key), with the routes K4's tiles
             took on both inputs; K6's time is its wrapper's whole call, prepass
             included, and the prepass has a row of its own (both also as
-            CUDA-graph replays: graph_ms). K7's
+            CUDA-graph replays: graph_ms). K4's and K5's fp32 routes have
+            keys of their own in the same rows (fp32_*: K4 at the
+            batch-16 and, fp32_b1_*, batch-1 serving shapes, K5 at the fp32
+            chairs shape, batch 10; each on a smooth field too), beside
+            `_ondemand_library` in fp32 with TF32 off and a bound whose
+            operations run at the fastest fp32-accurate rate (67 TFLOP/s on
+            the CUDA cores or a third of the 495 TFLOP/s TF32 rate). K7's
             yardstick is the unfused SepConvGRU pass (three cuDNN convs and
             their elementwise work); its row also gives the fp32 route's
             time per launch at the batch-2 training shape (fp32_ms) and the
@@ -299,6 +309,9 @@ PHASES = ("device", "kernels", "small", "standard", "train", "ondemand", "fused_
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16, dense tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32, dense tensor cores
+# the fastest fp32-accurate rate: the CUDA cores, or three split TF32 passes
+FP32_ACCURATE_FLOPS_PER_S = max(FP32_FLOPS_PER_S, TF32_FLOPS_PER_S / 3)
 FLOPS_PER_S = {torch.float32: FP32_FLOPS_PER_S, torch.bfloat16: BF16_FLOPS_PER_S}
 SERVE_HW = (436, 1024)  # bench.py::main: Sintel frames, padded to 440x1024
 ITERS = 32
@@ -1233,11 +1246,92 @@ def _ondemand_train(state):
     state["ondemand_train"] = results
 
 
+def _ondemand_fp32_serving(state):
+    """RAFT-standard fp32 on-demand serving at batch 1 (1024x436 padded to
+    1024x440, 32 iterations): one Sintel pair of `evaluate --alternate_corr`,
+    through K4's fp32 route, against the materialized fp32 path (same
+    weights). The host clock over 4 calls after the counted one."""
+    from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
+    from raft_optical_flow_tpu_torch.models import RAFT, RAFTConfig
+
+    model = RAFT(RAFTConfig(alternate_corr=True), device="cuda",
+                 generator=torch.Generator().manual_seed(0))
+    mat = RAFT(RAFTConfig(), device="cuda")
+    mat.load_state_dict(model.state_dict())
+    padder, img1, img2 = _serving_inputs(1, seed=1)
+    reset_all()
+    _, flow = model(img1, img2, iters=ITERS)
+    torch.cuda.synchronize()
+    launches = launch_counts()  # the main path's run
+    expect_launches(launches, {"corr_ondemand_fwd": ITERS}, "on-demand fp32 serving batch 1")
+    routes = co.corr_ondemand_fwd_routes()
+    out = padder.unpad(flow)
+    if tuple(out.shape) != (1, *SERVE_HW, 2) or not torch.isfinite(out).all():
+        raise AssertionError("on-demand fp32 RAFT-standard output has the wrong shape or is not "
+                             "finite")
+    _, flow_mat = mat(img1, img2, iters=ITERS)
+    epe = torch.linalg.norm(flow - flow_mat, dim=-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        model(img1, img2, iters=ITERS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 4
+    state["ondemand_fp32_serving"] = {
+        "ms": ms, "pairs_per_s": 1e3 / ms, "launches": launches, "routes_last_call": routes,
+        "epe_mean": float(epe.mean()), "epe_max": float(epe.max())}
+    log(f"ondemand standard fp32 batch=1: {ms:.3f} ms/call, K4 launches "
+        f"{launches['corr_ondemand_fwd']}, routes of the last K4 call {routes}; vs materialized "
+        f"fp32 EPE mean={float(epe.mean())!r} max={float(epe.max())!r} (gate mean < 0.02)")
+    if not float(epe.mean()) < 0.02:
+        raise AssertionError("on-demand fp32 serving and materialized fp32 serving disagree")
+    del model, mat, img1, img2, flow, flow_mat, out
+    torch.cuda.empty_cache()
+
+
+def _ondemand_fp32_train(state):
+    """The fp32 on-demand chairs step (RAFT-standard, batch 10, 368x496, 12
+    iterations, BatchNorm training, `train_raft --alternate_corr`): one
+    warm-up, then 3 timed steps; ms/step, peak memory, K4-K6 launches."""
+    from raft_optical_flow_tpu_torch.models import RAFTConfig
+    from raft_optical_flow_tpu_torch.train.configs import STANDARD_CURRICULUM
+    from raft_optical_flow_tpu_torch.train.trainer import create_train_state
+
+    chairs = STANDARD_CURRICULUM[0]
+    assert chairs.batch_size == 10 and tuple(chairs.image_size) == TRAIN_HW and not chairs.freeze_bn
+    st = create_train_state(RAFTConfig(alternate_corr=True), chairs, device="cuda")
+    batch = _train_batch(chairs.batch_size, seed=44)
+    per_step = {k: chairs.iters for k in ("corr_ondemand_fwd", "corr_ondemand_bwd_df1",
+                                         "corr_ondemand_bwd_df2", "corr_ondemand_df2_plan")}
+    kw = dict(iters=chairs.iters, gamma=chairs.gamma, freeze_bn=chairs.freeze_bn)
+    _timed_steps(st, batch, 1, per_step, **kw)  # warm-up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, m = _timed_steps(st, batch, 3, per_step, **kw)
+    ms = float(np.median(times))
+    state["ondemand_fp32_train"] = {
+        "ms": ms, "ms_readings": times, "pairs_per_s": chairs.batch_size * 1e3 / ms,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": per_step,
+        "loss": m["loss"]}
+    r = state["ondemand_fp32_train"]
+    log(f"ondemand train standard fp32 chairs batch=10 {TRAIN_HW[0]}x{TRAIN_HW[1]} "
+        f"iters={chairs.iters}: {ms:.3f} ms/step (median of {[round(t, 3) for t in times]}) "
+        f"peak_mem={r['peak_gib']:.2f} GiB (materialized, phase train: "
+        f"{state.get('train', {}).get('fp32_chairs_bs10', {}).get('peak_gib', float('nan')):.2f}"
+        f" GiB) loss={m['loss']!r} launches/step={per_step}")
+    if not np.isfinite(m["loss"]):
+        raise AssertionError("on-demand fp32 chairs step is not finite")
+    del st, batch
+    torch.cuda.empty_cache()
+
+
 def phase_ondemand(state):
     _ondemand_kernel_checks(state)
     _ondemand_serving(state)
+    _ondemand_fp32_serving(state)
     _ondemand_small(state)
     _ondemand_train(state)
+    _ondemand_fp32_train(state)
     log("phase ondemand: ok")
 
 
@@ -4149,6 +4243,7 @@ def phase_timing(state):
     del pyr
     rows["corr_lookup_level_bwd"] = _time_k3(radius, dt)
     _time_ondemand(rows)
+    _time_ondemand_fp32(rows)
     rows["sepconv_gru_pass"] = _time_k7()
     ck.LAUNCHES.update(saved)  # timing launches are not the main path's
     co.LAUNCHES.update(saved_ondemand)
@@ -4200,16 +4295,17 @@ def _ondemand_library(f1, levels, coords, radius):
     return forward, f1, imgs
 
 
-def _timing_row(name, fn, plain_fn, lib_fn, nbytes, n_ops, dtype, detail):
+def _timing_row(name, fn, plain_fn, lib_fn, nbytes, n_ops, dtype, detail, rate=None):
     """plain, kernel, kernel, plain (two readings each, in one call), the
-    library yardstick, and the bound."""
+    library yardstick, and the bound (operations at `rate`, else at the
+    dtype's peak)."""
     p1 = cuda_ms(plain_fn, 3)
     k_a = cuda_ms(fn, 20)
     k_b = cuda_ms(fn, 20)
     p2 = cuda_ms(plain_fn, 3)
     lib = cuda_ms(lib_fn, 5)
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops = n_ops / FLOPS_PER_S[dtype] * 1e3
+    bound_ops = n_ops / (rate or FLOPS_PER_S[dtype]) * 1e3
     row = {
         "ms": min(k_a, k_b), "ms_readings": [k_a, k_b],
         "plain_ms": min(p1, p2), "plain_readings": [p1, p2],
@@ -4338,6 +4434,104 @@ def _time_ondemand(rows):
     plan = rows["corr_ondemand_df2_plan"]
     plan["graph_ms"] = graph_ms(lambda: co.corr_ondemand_df2_plan(coords, shapes, radius), 10)
     log(f"timing corr_ondemand_df2_plan as CUDA-graph replays: {plan['graph_ms']:.4f} ms")
+
+
+def _native_grid_sampler(fn):
+    """fn with cuDNN off: PyTorch's own grid_sampler_2d kernels, as in bf16
+    (cuDNN's fp32 grid sampler refuses the batch-16 call)."""
+    def run():
+        with torch.backends.cudnn.flags(enabled=False):
+            return fn()
+    return run
+
+
+def _time_ondemand_fp32(rows):
+    """The fp32 routes (fp32 operands, fp32 windows and cotangents, r = 4, C
+    = 256): K4 at the batch-16 serving shape (the `fp32_*` keys of its row)
+    and at batch 1 (`fp32_b1_*`, one Sintel pair of `evaluate
+    --alternate_corr`), K5 at the chairs stage's shape (batch 10, 368x496 ->
+    46x62); each on the serving coords and on a smooth field, each first
+    held against its plain version on the very inputs it is timed on. The
+    yardstick is `_ondemand_library` in fp32 with TF32 off (autograd of it
+    for fmap1 alone for K5), on PyTorch's own grid sampler; the bound takes the tap dots at the fastest
+    fp32-accurate rate (FP32_ACCURATE_FLOPS_PER_S)."""
+    from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
+    from raft_optical_flow_tpu_torch.kernels.gru_fused import _full_fp32
+
+    fp32, radius, C = torch.float32, 4, 256
+    K2 = (2 * radius + 1) ** 2
+    h, w = (SERVE_HW[0] + 4) // 8, SERVE_HW[1] // 8
+    Q = h * w
+    row = rows["corr_ondemand_fwd"]
+    for B, key, seed in ((16, "fp32", 35), (1, "fp32_b1", 37)):
+        f1, levels = ondemand_inputs(B, h, w, fp32, seed=seed)
+        coords = serving_coords(B, h, w, seed=seed + 1).reshape(B, Q, 2).contiguous()
+        smooth = smooth_coords(B, h, w, seed=seed + 2).reshape(B, Q, 2).contiguous()
+        fn = lambda: co.corr_ondemand_fwd(f1, levels, coords, radius, fp32)
+        plain_fn = lambda: co.corr_ondemand_fwd_plain(f1, levels, coords, radius, fp32)
+        check_k4(f"K4 {key} timed inputs", fn(), plain_fn())
+        routes = co.corr_ondemand_fwd_routes()
+        smooth_fn = lambda: co.corr_ondemand_fwd(f1, levels, smooth, radius, fp32)
+        check_k4(f"K4 {key} smooth inputs", smooth_fn(),
+                 co.corr_ondemand_fwd_plain(f1, levels, smooth, radius, fp32))
+        routes_smooth = co.corr_ondemand_fwd_routes()
+        lib_fwd, *_ = _ondemand_library(f1, levels, coords, radius)
+        lib_fn = _native_grid_sampler(lambda: lib_fwd().detach())
+        taps = _ondemand_taps(levels, coords, radius)
+        nbytes = (f1.numel() * 4 + sum(f.numel() for f in levels) * 4 + B * Q * 8
+                  + B * Q * len(levels) * K2 * 4)
+        with _full_fp32():
+            r = _timing_row(
+                f"corr_ondemand_fwd {key}", fn, plain_fn, lib_fn, nbytes,
+                taps * C * 2 + B * Q * len(levels) * K2 * 9, fp32,
+                f"B={B} Q={Q} C={C} r={radius} fp32 levels 55x128..6x16, {taps:.0f} in-bounds "
+                f"taps, library in fp32 with TF32 off;", rate=FP32_ACCURATE_FLOPS_PER_S)
+        r_smooth = cuda_ms(smooth_fn, 20)
+        row.update({f"{key}_{k}": r[k] for k in ("ms", "ms_readings", "plain_ms", "library_ms",
+                                                  "bound_ms", "bound_by", "bytes", "ops",
+                                                  "fp32_core_floor_ms")})
+        row.update({f"{key}_ms_smooth": r_smooth, f"{key}_routes": routes,
+                    f"{key}_routes_smooth": routes_smooth})
+        log(f"timing corr_ondemand_fwd {key} on a smooth field: {r_smooth:.4f} ms; routes of "
+            f"its tiles (tile, level): timed inputs {routes}, smooth field {routes_smooth}")
+        del f1, levels, coords, smooth, lib_fwd
+        torch.cuda.empty_cache()
+
+    B = 10
+    h, w = TRAIN_HW[0] // 8, TRAIN_HW[1] // 8
+    Q = h * w
+    f1, levels = ondemand_inputs(B, h, w, fp32, seed=39)
+    coords = serving_coords(B, h, w, seed=40).reshape(B, Q, 2).contiguous()
+    smooth = smooth_coords(B, h, w, seed=41).reshape(B, Q, 2).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    g = torch.randn(B, Q, len(levels) * K2, device="cuda", generator=gen)
+    fn = lambda: co.corr_ondemand_bwd_df1(levels, coords, g, radius)
+    plain_fn = lambda: co.corr_ondemand_bwd_df1_plain(levels, coords, g, radius)
+    check_rel("K5 fp32 timed inputs", fn(), plain_fn())
+    smooth_fn = lambda: co.corr_ondemand_bwd_df1(levels, smooth, g, radius)
+    check_rel("K5 fp32 smooth inputs", smooth_fn(),
+              co.corr_ondemand_bwd_df1_plain(levels, smooth, g, radius))
+    lib_fwd, f1_leaf, _ = _ondemand_library(f1, levels, coords, radius)
+    taps = _ondemand_taps(levels, coords, radius)
+    with _full_fp32(), torch.backends.cudnn.flags(enabled=False):
+        out = lib_fwd()
+    with _full_fp32():
+        r = _timing_row(
+            "corr_ondemand_bwd_df1 fp32", fn, plain_fn,
+            _native_grid_sampler(lambda: torch.autograd.grad(out, [f1_leaf], g,
+                                                             retain_graph=True)),
+            B * Q * 8 + g.numel() * 4 + sum(f.numel() for f in levels) * 4 + B * Q * C * 4,
+            taps * C * 2 + taps * 6, fp32,
+            f"B={B} Q={Q} C={C} r={radius} fp32 levels 46x62..5x7, fp32 g, {taps:.0f} in-bounds "
+            f"taps, library in fp32 with TF32 off;", rate=FP32_ACCURATE_FLOPS_PER_S)
+    r_smooth = cuda_ms(smooth_fn, 20)
+    rows["corr_ondemand_bwd_df1"].update(
+        {f"fp32_{k}": r[k] for k in ("ms", "ms_readings", "plain_ms", "library_ms", "bound_ms",
+                                     "bound_by", "bytes", "ops", "fp32_core_floor_ms")})
+    rows["corr_ondemand_bwd_df1"]["fp32_ms_smooth"] = r_smooth
+    log(f"timing corr_ondemand_bwd_df1 fp32 on a smooth field: {r_smooth:.4f} ms")
+    del f1, levels, coords, smooth, g, out, lib_fwd, f1_leaf
+    torch.cuda.empty_cache()
 
 
 def _time_k7():
@@ -4592,6 +4786,22 @@ def main() -> int:
                        ("sepconv_gru_pass", ("fp32_ms", "fp32_library_ms")),
                        ("corr_ondemand_df2_plan", ("graph_ms",))):
         by_name[name].update({k: state["timing"][name][k] for k in keys})
+    # the fp32 routes of K4 (batch 16 and batch 1 at the serving shape) and K5
+    # (the chairs shape), and their launches on the fp32 paths: K4 per fp32
+    # serving pair (batch 1), K5 per fp32 chairs step
+    fp32_launches = {
+        "corr_ondemand_fwd": state["ondemand_fp32_serving"]["launches"]["corr_ondemand_fwd"],
+        "corr_ondemand_bwd_df1": state["ondemand_fp32_train"]["launches"]["corr_ondemand_bwd_df1"]}
+    for name, keys in (("corr_ondemand_fwd", ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms", "ms_smooth", "b1_ms", "b1_plain_ms",
+                                              "b1_bound_ms", "b1_library_ms", "b1_ms_smooth")),
+                       ("corr_ondemand_bwd_df1", ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms", "ms_smooth"))):
+        t = state["timing"][name]
+        by_name[name].update({f"fp32_{k}": t[f"fp32_{k}"] for k in keys})
+        if fp32_launches[name] <= 0:
+            raise AssertionError(f"{name}'s fp32 route was not launched on its fp32 path")
+        by_name[name]["fp32_launches"] = fp32_launches[name]
     k3 = state["timing"]["corr_lookup_level_bwd"]
     by_name["corr_lookup_level_bwd"].update(
         {k: k3[k] for k in ("all_levels_ms", "graph_ms", "graph_plain_ms", "graph_library_ms",

@@ -28,9 +28,10 @@ wrapper launches its kernel or raises; for a CPU tensor it runs its plain
 version, the blockwise formulation of the JAX package's `_ondemand` (query
 tiles of 128, two separable tri-selector products per tile and level),
 which is also the kernels' oracle and keeps memory at O(128 * Hl * Wl).
-Each wrapper counts its launches in `LAUNCHES`. K4's bf16 kernel works on
-tiles of 4x16 neighbouring queries; `corr_ondemand_fwd_routes` reports
-which of its two routes each (tile, level) of the last launch took.
+Each wrapper counts its launches in `LAUNCHES`. K4 and K5 work on tiles of
+4x16 neighbouring queries in either dtype (fp32 products as three TF32
+passes on the tensor cores); `corr_ondemand_fwd_routes` reports which of
+K4's two routes each (tile, level) of the last launch took.
 """
 
 from __future__ import annotations
@@ -291,10 +292,14 @@ def corr_ondemand_fwd(f1: torch.Tensor, levels: Sequence[torch.Tensor], coords: 
     levels allowed); coords: [B, Q, 2] fp32 level-0 (x, y); all contiguous.
     Returns [B, Q, L*(2r+1)^2] out_dtype (fp32 sums, one rounding), levels
     concatenated coarse-last, zeros for an empty level. grid_w: the width of
-    the grid the queries lie on, for the bf16 kernel's tiles of 4 grid rows
-    x 16 queries (0: level 0's width when Q = H0 * W0, else 16). The tiles
-    decide each one's route, and the two routes may round a bf16 output one
-    step apart; fp32 results and the plain version do not depend on it.
+    the grid the queries lie on, for the kernel's tiles of 4 grid rows x 16
+    queries (0: level 0's width when Q = H0 * W0, else 16). The tiles decide
+    each one's route, and the two routes sum in other orders: a bf16 output
+    may round one step apart, an fp32 one differ by a few ulp. A query's
+    value depends only on its own inputs and its tile's route, so a slab of
+    a frame's rows (a multiple of 4 rows from a multiple of 4) given the
+    frame's width gets each value of the whole frame's call. The plain
+    version does not read grid_w.
     """
     B, Q, C = f1.shape
     _check_coords(coords, B, Q, radius)
@@ -330,11 +335,12 @@ def corr_ondemand_bwd_df1(levels: Sequence[torch.Tensor], coords: torch.Tensor,
 
     levels: [B, Hl, Wl, C] fp32 or bf16 (one dtype, contiguous); coords:
     [B, Q, 2] fp32 level-0; g: [B, Q, L*(2r+1)^2] fp32 or bf16, K4's output
-    cotangent. Returns df1 [B, Q, C] fp32 (fp32 sums, no atomics). grid_w:
-    the width of the query grid, as for `corr_ondemand_fwd`: the bf16
-    kernel's tiles of 4 grid rows x 16 queries (0: level 0's width when
-    Q = H0 * W0, else 16). A slab of a frame's rows given the frame's width
-    gets the frame's tiles, and so each query its value in the frame.
+    cotangent. Returns df1 [B, Q, C] fp32 (fp32 sums, no atomics; fp32
+    fmap2's products as three TF32 passes). grid_w: the width of the query
+    grid, as for `corr_ondemand_fwd`: the kernel's tiles of 4 grid rows x 16
+    queries (0: level 0's width when Q = H0 * W0, else 16). A slab of a
+    frame's rows given the frame's width gets the frame's tiles, and so each
+    query its value in the frame.
     """
     B, Q, _ = coords.shape
     if not levels or levels[0].dim() != 4:
@@ -445,10 +451,10 @@ def corr_ondemand_df2_plan(coords: torch.Tensor, shapes: Sequence[Tuple[int, int
 
 
 def corr_ondemand_fwd_routes() -> Dict[str, int]:
-    """Routes of the last bf16 K4 launch in this process: (tile, level)
-    pairs that went through the staged tensor-core tiles (`tiled`) or a warp
-    per query (`per_query`), and the tiles recorded (`tiles`, at most 65536;
-    0 after an fp32 launch). Synchronises with the card."""
+    """Routes of the last K4 launch in this process, fp32 or bf16: (tile,
+    level) pairs that went through the staged tensor-core tiles (`tiled`)
+    or a warp per query (`per_query`), and the tiles recorded (`tiles`, at
+    most 65536). Synchronises with the card."""
     counts = (ctypes.c_longlong * 3)()
     _check(_kernels().raft_corr_ondemand_fwd_routes(ctypes.addressof(counts)),
            "corr_ondemand_fwd_routes")

@@ -42,8 +42,9 @@
 // serving shape (bf16, C = 256) the compulsory bytes are about 208 MB,
 // 0.062 ms at 3.35 TB/s, and the products 17 GFLOP: bytes bound the
 // function. A warp per query that re-reads its own taps through L1/L2 (the
-// fp32 path below) moves about 23 GB of cache traffic per launch there. The
-// bf16 path instead shares taps between neighbouring queries:
+// first design, now only the per-query route below) moves about 23 GB of
+// cache traffic per launch there. Both dtypes instead share taps between
+// neighbouring queries; the bf16 tiles:
 // a block takes a tile of 4 x 16 queries of the query grid (the level-0
 // map's own grid when Q = H0 * W0, as RAFT's coords are, or the grid width
 // the caller gives; else rows of 16 consecutive queries; the tiles decide
@@ -70,20 +71,33 @@
 // rows, or whose warp's columns exceed kMaxWarpCols (coords spread over the
 // whole level, wrapped rows of a very wide map) takes the per-query route
 // for that level inside the kernel: a warp per query, the taps read from
-// device memory and dotted on the CUDA cores, as the fp32 path does. The
+// device memory and dotted on the CUDA cores (the first design's body). The
 // two routes sum a dot's products in other orders, so a query's bf16 output
 // may round one bf16 step apart between them: other tiles of the same
 // queries (another grid) may change a value by that step. A far
 // out-of-bounds query has no in-bounds tap and adds nothing to the box.
 // Each tile and level records the route it took (g_fwd_route), which
-// raft_corr_ondemand_fwd_routes counts for the last bf16 launch.
-// fp32 operands keep the warp-per-query body on the CUDA cores: the tensor
-// cores would round them to TF32, and the fp32 gate (max_rel 2e-5) and
-// fp32 policy do not allow that.
-// K5 does the products of K4 backwards: with bf16 fmap2 on K4's tiles and
-// staged boxes, drows times the staged pixels on the tensor cores; with fp32
-// fmap2 a warp per query on the CUDA cores. K6 sums over queries for each
-// fmap2 pixel after a prepass (see their notes).
+// raft_corr_ondemand_fwd_routes counts for the last launch of either dtype.
+// fp32 operands take the same tiles, boxes and routes. One TF32 product
+// keeps 11 significant bits, which the fp32 gate (max_rel 2e-5) and policy
+// do not allow; so each fp32 operand goes in as two TF32 parts (hi, lo) and
+// each product as three TF32 mma (lo*hi, hi*lo, hi*hi), the product to
+// about 2^-21 as the JAX package's Precision.HIGHEST does it on the TPU
+// (multi-pass bf16). f1 as hi and lo parts at C = 256 would take 256
+// registers a lane, so the fp32 tiles stage 64-channel units (the bf16
+// unit's 256 bytes a pixel), load each unit's f1 as A fragments when the
+// unit starts, and sum each unit's products into a per-warp table of the
+// (2r+2)^2 tap dots in shared memory, blended into the windows at the end;
+// warps take 4 x 4 patches of the tile, whose windows span fewer columns
+// than a row of 16, and a block one level of its tile (a batch-1 frame's
+// 112 tiles make 448 blocks). Each fp32 tap dot sums its units and k-steps
+// in a fixed order whatever the query's place in its tile, so an fp32
+// output depends on its own inputs and its tile's route only; the two
+// routes sum in other orders (a few ulp).
+// K5 does the products of K4 backwards on K4's tiles and staged boxes,
+// drows times the staged pixels on the tensor cores: bf16 fmap2 in three
+// exact bf16 pieces of drows, fp32 fmap2 in three TF32 passes. K6 sums over
+// queries for each fmap2 pixel after a prepass (see their notes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,7 +108,6 @@
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kWarps = 4;            // K4 fp32, K5: one warp per query, 4 per block
 constexpr unsigned kFull = 0xffffffffu;
 
 // K4 bf16 (tiled): 4 warps, each 16 queries of one row of the query grid;
@@ -118,6 +131,18 @@ constexpr size_t fwd_smem() {
          (size_t)kTileWarps * 16 * kMaxKK * sizeof(TO);
 }
 constexpr int kMaxRecordedTiles = 1 << 16;
+
+// K4 fp32 (tiled): the same tiles; staged units of 64 fp32 channels (the
+// bf16 unit's 256 bytes a pixel), and per warp a table of its 16 queries'
+// (2r+2)^2 tap dots
+constexpr int kUnit32 = 64;
+constexpr int kPitch32 = kUnit32 * 4 + 64;  // lanes (g, t) read pixel g's chunk t: 8 banks apart
+constexpr int kStage32Bytes = (kMaxBoxW + 8) * kPitch32;
+static_assert(kUnit32 * 4 == kUnitC * 2, "one unit is 256 bytes a pixel in either dtype");
+template <int R>
+constexpr size_t fwd32_smem() {
+  return kStages * (size_t)kStage32Bytes + (size_t)kTileWarps * 16 * (2 * R + 2) * (2 * R + 2) * 4;
+}
 
 // K6: 8 warps; a warp sums 4 columns of a row over 32*cpl channels
 constexpr int kDf2Warps = 8;
@@ -148,8 +173,8 @@ struct Df2Grid {
   int block_start[kMaxLevels + 1];
 };
 
-// Route of each (tile, level) of the last bf16 K4 launch: 0 empty level,
-// 1 tiled, 2 per query. Each block writes only its own entries.
+// Route of each (tile, level) of the last K4 launch (either dtype): 0 empty
+// level, 1 tiled, 2 per query. Each block writes only its own entries.
 __device__ unsigned char g_fwd_route[kMaxRecordedTiles * kMaxLevels];
 int g_last_tiles = 0;
 int g_last_levels = 0;
@@ -297,38 +322,6 @@ __device__ __forceinline__ void query_window(const float* a1, const T* __restric
   }
 }
 
-// ---------------------------------------------------------------------------
-// K4, fp32 operands (and the route of any tile on which the tiled kernel
-// gives up is the same body): one warp per query, 4 per block. Writes every
-// output of its query, zeros for an empty level.
-template <typename T, typename TO, int R, int CPL>
-__global__ void __launch_bounds__(kWarps * 32)
-    ondemand_fwd_kernel(const T* __restrict__ f1, Levels lv,
-                        const float* __restrict__ coords, TO* __restrict__ out,
-                        int64_t bq_total, int Q, float inv_sqrt_c) {
-  constexpr int K = 2 * R + 1;
-  constexpr int C = 32 * CPL;
-  const int lane = threadIdx.x & 31;
-  const int64_t bq = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (bq >= bq_total) return;  // whole warps
-  const int64_t b = bq / Q;
-  float a1[CPL];
-  load_vec<CPL>(f1 + bq * C + lane * CPL, a1);
-  const float cx0 = coords[2 * bq], cy0 = coords[2 * bq + 1];
-  TO* o = out + bq * (int64_t)(lv.n * K * K);
-  for (int l = 0; l < lv.n; ++l) {
-    const int H = lv.H[l], W = lv.W[l];
-    TO* ol = o + l * K * K;
-    if (H <= 0 || W <= 0) {
-      for (int k = lane; k < K * K; k += 32) store_f(ol + k, 0.0f);
-      continue;
-    }
-    const Taps t = query_taps<R>(cx0, cy0, l, H, W);
-    const T* f2 = static_cast<const T*>(lv.ptr[l]) + b * ((int64_t)H * W * C);
-    query_window<T, TO, R, CPL>(a1, f2, H, W, t, ol, inv_sqrt_c, lane);
-  }
-}
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -352,16 +345,48 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// Stages one unit of a box row: bw pixels x kUnitC channels from src (pixel
-// stride C elements) into shared memory at dst, PITCH bytes a pixel, 16 bytes
-// a cp.async, by the block's NTHREADS threads. K4 and K5 stage their boxes
-// with it.
+// d += A (16 x 8, TF32, row-major) x B (8 x 8, TF32, col-major), fp32. A
+// fragment: a[0] (row g, k t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8,
+// t + 4); B: b0 (k t, n g), b1 (t + 4, g); lane = 4 g + t.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v as two TF32 parts (bit patterns): hi = v rounded to TF32's 11
+// significant bits (to nearest, ties away), lo = v - hi (exact in fp32),
+// whose low 13 bits the mma ignores (it truncates lo to TF32); v - hi - lo
+// as the mma reads them is below 2^-21 |v|.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// d += a * b to fp32 precision on the tensor cores: three TF32 products of
+// the parts, smallest first (lo*hi, hi*lo, hi*hi), into one accumulator;
+// lo*lo (below 2^-21 of the product) is left out. Never one TF32 pass.
+__device__ __forceinline__ void mma3_tf32(float (&d)[4], const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                          uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// Stages one unit of a box row: bw pixels x 256 bytes (kUnitC bf16 or
+// kUnit32 fp32 channels) from src (pixel stride `stride` bytes) into shared
+// memory at dst, PITCH bytes a pixel, 16 bytes a cp.async, by the block's
+// NTHREADS threads. K4 and K5 stage their boxes with it.
 template <int PITCH, int NTHREADS>
-__device__ __forceinline__ void stage_unit(uint32_t dst, const __nv_bfloat16* src, int bw, int C,
+__device__ __forceinline__ void stage_unit(uint32_t dst, const void* src, int bw, int stride,
                                            int tid) {
-  for (int e = tid; e < bw * (kUnitC / 8); e += NTHREADS) {
-    const int px = e / (kUnitC / 8), v = e % (kUnitC / 8);
-    cp_async16(dst + px * PITCH + v * 16, src + (int64_t)px * C + v * 8);
+  const unsigned char* s = static_cast<const unsigned char*>(src);
+  for (int e = tid; e < bw * 16; e += NTHREADS) {
+    const int px = e >> 4, v = e & 15;
+    cp_async16(dst + px * PITCH + v * 16, s + (int64_t)px * stride + v * 16);
   }
 }
 
@@ -528,7 +553,7 @@ __global__ void __launch_bounds__(kTileWarps * 32, 3)
           const int y = by0 + u / CU, cu = u % CU;
           stage_unit<kPixBytes, kTileWarps * 32>(stage_s + (u % kStages) * kStageBytes,
                                                  f2 + ((int64_t)y * W + bx0) * C + cu * kUnitC,
-                                                 bw, C, tid);
+                                                 bw, C * 2, tid);
         };
 #pragma unroll
         for (int u = 0; u < kStages - 1; ++u) {
@@ -638,6 +663,236 @@ __global__ void __launch_bounds__(kTileWarps * 32, 3)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4, fp32 operands: the tiled kernel in fp32 (see the note at the top). A
+// block takes the bf16 kernel's tile of 4 grid rows x 16 columns at one
+// level (blockIdx.y: a tile's levels run in parallel, so a batch-1 frame
+// still fills the card) with the same box, route and route record; warp w
+// its 4 x 4 patch of columns 4w..4w+3, the mma's 16 rows (query of row mr:
+// grid row mr / 4, column mr % 4 of the patch). The block stages the box
+// unit by unit (64 channels), each unit's rows in turn (cp.async, one
+// ahead, one barrier a row). When a unit starts, each warp loads its
+// queries' 64 channels of f1 from device memory into registers, the A
+// fragments' fp32 values (lane (g, t): rows g and g + 8, channels 16v + 4t
+// .. + 3 with one 16-byte load each; k-step 2v + e takes channel 16v + 4t +
+// 2e as k = t and the next as k = t + 4, and B the same, so a lane reads
+// pixel g's 16 bytes 16v + 4t of the staged row, bank-free at kPitch32),
+// split into hi and lo parts where used (32 registers, not 64). For each
+// staged row of its rows the warp multiplies them with its columns (n-tiles
+// of 8 pixels from its first column) in three TF32 passes, the hi*hi
+// products into one accumulator and the cross terms into another (two
+// shorter chains of dependent mma, added before use), and each lane adds
+// the products it holds that land on a tap of their query's window (a
+// mask per lane and level: tap inside the (2r+2)^2, x < W) into the warp's
+// tap table tab[mr][j][i] in shared memory: the lane that holds a (query,
+// column) product is the same for every unit, so each entry has one writer,
+// and a tap out of bounds stays 0. Once the units are in, the warp blends
+// each window value from its table, a value a lane in the output's order
+// (consecutive stores). A tap dot sums its units in order, each unit's
+// k-steps and passes in order, whatever the query's place in its tile.
+template <typename TO, int R, int C>
+__global__ void __launch_bounds__(kTileWarps * 32, 3)
+    ondemand_fwd_tiled_fp32_kernel(const float* __restrict__ f1, Levels lv,
+                                   const float* __restrict__ coords, TO* __restrict__ out, int Q,
+                                   int grid_w, int tiles_x, int tiles_per_b, float inv_sqrt_c) {
+  constexpr int K = 2 * R + 1;
+  constexpr int KK = K * K;
+  constexpr int NT = 2 * R + 2;
+  constexpr int NT2 = NT * NT;
+  constexpr int CU = C / kUnit32;         // staged units per box row
+  constexpr int CPL = C / 32;
+  constexpr int NTW = kMaxWarpCols / 8;   // n-tiles a warp may take
+  constexpr int KS = kUnit32 / 8;         // k-steps of a unit
+  static_assert(KK <= kMaxKK, "window");
+  static_assert(2 * NTW <= 32, "a lane's hit mask");
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* stage = smem;
+  float* tab = reinterpret_cast<float*>(smem + kStages * kStage32Bytes);
+  __shared__ int wrange[kTileWarps][5];
+  __shared__ float frac[kTileWarps][16][2];  // (fx, fy) of each query at this level
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int l = blockIdx.y;
+  const int64_t b = blockIdx.x / tiles_per_b;
+  const int tile = blockIdx.x % tiles_per_b;
+  const int row0 = (tile / tiles_x) * kTileWarps;             // the tile's first grid row
+  const int colw = (tile % tiles_x) * kTileCols + 4 * warp;  // the warp's first column
+  tab += warp * 16 * NT2;
+  auto query = [&](int mr) {
+    const int col = colw + (mr & 3);
+    const int q = (row0 + (mr >> 2)) * grid_w + col;
+    return col < grid_w && q < Q ? q : -1;
+  };
+  const int64_t bq0 = b * Q;
+  const int row_stride = lv.n * KK;
+  const int H = lv.H[l], W = lv.W[l];
+  int route = 0;
+  if (H > 0 && W > 0) {  // uniform over the block
+    const float* f2 = static_cast<const float*>(lv.ptr[l]) + b * ((int64_t)H * W * C);
+    // query lane / 2 (the box, the blend's fractions) and the lane's mma rows g8, g8 + 8
+    const int qm = query(lane >> 1), qa = query(g8), qb = query(g8 + 8);
+    float cxm = 0.0f, cym = 0.0f;
+    if (qm >= 0) { cxm = coords[2 * (bq0 + qm)]; cym = coords[2 * (bq0 + qm) + 1]; }
+    const Taps tpm = query_taps<R>(cxm, cym, l, H, W);
+    const int xlo = max(tpm.x, 0), xhi = min(tpm.x + NT - 1, W - 1);
+    const int ylo = max(tpm.y, 0), yhi = min(tpm.y + NT - 1, H - 1);
+    const bool has = qm >= 0 && xlo <= xhi && ylo <= yhi;
+    if (!(lane & 1)) {
+      frac[warp][lane >> 1][0] = tpm.fx;
+      frac[warp][lane >> 1][1] = tpm.fy;
+    }
+    for (int k = lane; k < 16 * NT2; k += 32) tab[k] = 0.0f;
+    const TileBox box = tile_box(has, xlo, xhi, ylo, yhi, wrange, warp, lane);
+    route = box.tiled ? 1 : 2;
+    __syncwarp();
+    if (box.tiled) {
+      // the first taps of the lane's rows' queries (those of lane 2 g8 and 2 g8 + 16)
+      const int txa = __shfl_sync(kFull, tpm.x, 2 * g8), tya = __shfl_sync(kFull, tpm.y, 2 * g8);
+      const int txb = __shfl_sync(kFull, tpm.x, 2 * g8 + 16);
+      const int tyb = __shfl_sync(kFull, tpm.y, 2 * g8 + 16);
+      // which of the lane's products (n-tile nt, column 2 t4 + e: bit 2 nt + e) land on a
+      // tap of their query's window: the tap's column offsets ia0 + 8 nt + e
+      const int ia0 = box.wx0 + 2 * t4 - txa, ib0 = box.wx0 + 2 * t4 - txb;
+      unsigned hit_a = 0, hit_b = 0;
+#pragma unroll
+      for (int k = 0; k < 2 * NTW; ++k) {
+        const int off = 8 * (k >> 1) + (k & 1);
+        const bool in_w = box.wx0 + 2 * t4 + off < W;
+        hit_a |= (qa >= 0 && in_w && ia0 + off >= 0 && ia0 + off < NT) ? 1u << k : 0u;
+        hit_b |= (qb >= 0 && in_w && ib0 + off >= 0 && ib0 + off < NT) ? 1u << k : 0u;
+      }
+      const int ntw = box.warp_has ? (box.wx1 - box.wx0 + 8) / 8 : 0;  // the warp's n-tiles
+      const int nunits = box.bh * CU;  // (unit, row) pairs, unit by unit
+      const uint32_t stage_s = smem_addr(stage);
+      auto issue = [&](int u) {
+        const int cu = u / box.bh, y = box.by0 + u % box.bh;
+        stage_unit<kPitch32, kTileWarps * 32>(
+            stage_s + (u % kStages) * kStage32Bytes,
+            f2 + ((int64_t)y * W + box.bx0) * C + cu * kUnit32, box.bw, C * 4, tid);
+      };
+#pragma unroll
+      for (int u = 0; u < kStages - 1; ++u) {
+        if (u < nunits) issue(u);
+        cp_async_commit();
+      }
+      float4 af[KS / 2][2];  // the unit's f1 of queries qa, qb (split when used: fewer registers)
+      for (int u = 0; u < nunits; ++u) {
+        const int cu = u / box.bh, y = box.by0 + u % box.bh;
+        if (y == box.by0) {  // a unit starts: its A fragments (0 past the tile's queries)
+          const float* fa = f1 + (bq0 + qa) * C + cu * kUnit32 + 4 * t4;
+          const float* fb = f1 + (bq0 + qb) * C + cu * kUnit32 + 4 * t4;
+#pragma unroll
+          for (int v = 0; v < KS / 2; ++v) {
+            const float4 xa = qa >= 0 ? *reinterpret_cast<const float4*>(fa + 16 * v)
+                                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            const float4 xb = qb >= 0 ? *reinterpret_cast<const float4*>(fb + 16 * v)
+                                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            af[v][0] = xa;
+            af[v][1] = xb;
+          }
+        }
+        cp_async_wait<kStages - 2>();  // unit u has landed
+        __syncthreads();               // ... for every thread; unit u - 1 is done
+        if (u + kStages - 1 < nunits) issue(u + kStages - 1);  // into unit u - 1's stage
+        cp_async_commit();
+        if (box.warp_has && y >= box.wy0 && y <= box.wy1) {  // uniform over the warp
+          // hi*hi products in acc, the two cross terms in accx (two shorter mma chains)
+          float acc[NTW][4], accx[NTW][4];
+#pragma unroll
+          for (int nt = 0; nt < NTW; ++nt) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[nt][i] = accx[nt][i] = 0.0f;
+          }
+          const unsigned char* st = stage + (u % kStages) * kStage32Bytes +
+                                    (box.wx0 - box.bx0 + g8) * kPitch32 + t4 * 16;
+#pragma unroll
+          for (int v = 0; v < KS / 2; ++v) {
+            // A of k-steps 2v (ahi[0], alo[0]) and 2v + 1
+            uint32_t ahi[2][4], alo[2][4];
+            const float4 xa = af[v][0], xb = af[v][1];
+            split_tf32(xa.x, ahi[0][0], alo[0][0]);
+            split_tf32(xb.x, ahi[0][1], alo[0][1]);
+            split_tf32(xa.y, ahi[0][2], alo[0][2]);
+            split_tf32(xb.y, ahi[0][3], alo[0][3]);
+            split_tf32(xa.z, ahi[1][0], alo[1][0]);
+            split_tf32(xb.z, ahi[1][1], alo[1][1]);
+            split_tf32(xa.w, ahi[1][2], alo[1][2]);
+            split_tf32(xb.w, ahi[1][3], alo[1][3]);
+#pragma unroll
+            for (int nt = 0; nt < NTW; ++nt) {
+              if (nt < ntw) {
+                const float4 bv = *reinterpret_cast<const float4*>(st + nt * 8 * kPitch32 + v * 64);
+                uint32_t bh[4], bl[4];
+                split_tf32(bv.x, bh[0], bl[0]);
+                split_tf32(bv.y, bh[1], bl[1]);
+                split_tf32(bv.z, bh[2], bl[2]);
+                split_tf32(bv.w, bh[3], bl[3]);
+                mma_tf32(accx[nt], alo[0], bh[0], bh[1]);
+                mma_tf32(accx[nt], ahi[0], bl[0], bl[1]);
+                mma_tf32(acc[nt], ahi[0], bh[0], bh[1]);
+                mma_tf32(accx[nt], alo[1], bh[2], bh[3]);
+                mma_tf32(accx[nt], ahi[1], bl[2], bl[3]);
+                mma_tf32(acc[nt], ahi[1], bh[2], bh[3]);
+              }
+            }
+          }
+#pragma unroll
+          for (int nt = 0; nt < NTW; ++nt) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[nt][i] += accx[nt][i];
+          }
+          // the products that land on a tap of their query's window
+          const int ja = y - tya, jb = y - tyb;
+          float* ra = tab + g8 * NT2 + ja * NT + ia0;
+          float* rb = tab + (g8 + 8) * NT2 + jb * NT + ib0;
+          const unsigned ma = ja >= 0 && ja < NT ? hit_a : 0u;
+          const unsigned mb = jb >= 0 && jb < NT ? hit_b : 0u;
+#pragma unroll
+          for (int k = 0; k < 2 * NTW; ++k) {
+            const int off = 8 * (k >> 1) + (k & 1);
+            if (ma & (1u << k)) ra[off] += acc[k >> 1][k & 1];
+            if (mb & (1u << k)) rb[off] += acc[k >> 1][2 + (k & 1)];
+          }
+        }
+      }
+    } else {
+      // per-query route: the warp's 16 queries one by one, straight to device memory
+      for (int mr = 0; mr < 16; ++mr) {
+        const float cx = __shfl_sync(kFull, cxm, 2 * mr);
+        const float cy = __shfl_sync(kFull, cym, 2 * mr);
+        const int q = query(mr);
+        if (q < 0) continue;  // uniform over the warp
+        float a1[CPL];
+        load_vec<CPL>(f1 + (bq0 + q) * C + lane * CPL, a1);
+        query_window<float, TO, R, CPL>(a1, f2, H, W, query_taps<R>(cx, cy, l, H, W),
+                                        out + (bq0 + q) * row_stride + l * KK, inv_sqrt_c, lane);
+      }
+    }
+  }
+  if (tid == 0 && blockIdx.x < kMaxRecordedTiles)
+    g_fwd_route[blockIdx.x * kMaxLevels + l] = (unsigned char)route;
+  __syncwarp();
+  if (route == 2) return;
+  // the windows from the tap table (zeros for an empty level), consecutive stores
+  for (int e = lane; e < 16 * KK; e += 32) {
+    const int mr = e / KK, k = e - mr * KK;
+    const int q = query(mr);
+    if (q < 0) continue;
+    float v = 0.0f;
+    if (route == 1) {
+      const int a = k / K, c = k - a * K;
+      const float* d = tab + mr * NT2 + c * NT + a;
+      const float fx = frac[warp][mr][0], fy = frac[warp][mr][1];
+      const float top = (1.0f - fx) * d[0] + fx * d[1];
+      const float bot = (1.0f - fx) * d[NT] + fx * d[NT + 1];
+      v = ((1.0f - fy) * top + fy * bot) * inv_sqrt_c;
+    }
+    store_f(out + (bq0 + q) * row_stride + l * KK + k, v);
+  }
+}
+
 // The cotangent of window row c = j (weight 1-fy on tap row j) and c = j-1
 // (weight fy), summed for column a = lane, times 1/sqrt(C); 0 on lanes >= K.
 template <typename TG, int R>
@@ -689,38 +944,40 @@ __device__ __forceinline__ void df1_query_level(float* acc, const T* __restrict_
   }
 }
 
-// ---------------------------------------------------------------------------
-// K5, fp32 fmap2: one warp per query; lane owns channels [lane*CPL, +CPL) of
-// df1 in registers and sums drows * f2 over every level and in-bounds tap,
-// levels and taps in order. Every df1 element written once: no atomics, no
-// memset.
-template <typename T, typename TG, int R, int CPL>
-__global__ void __launch_bounds__(kWarps * 32)
-    ondemand_bwd_df1_kernel(Levels lv, const float* __restrict__ coords,
-                            const TG* __restrict__ g, float* __restrict__ df1,
-                            int64_t bq_total, int Q, float inv_sqrt_c) {
+// One query's tap cotangents at one level, tq[j * NT + i] = drows[j][i],
+// with the per-query route's arithmetic (row cotangents gy, then the tap's
+// two columns): lane half h of the query's two fills columns [h NT / 2,
+// (h + 1) NT / 2), each from two columns of gy, each column from K loads of
+// the query's cotangent gl issued together. K5's tiles build their A from it.
+template <typename TG, int R>
+__device__ __forceinline__ void tap_cotangents(float* tq, const TG* __restrict__ gl,
+                                               const Taps& tp, float inv_sqrt_c, int half) {
   constexpr int K = 2 * R + 1;
-  constexpr int C = 32 * CPL;
-  const int lane = threadIdx.x & 31;
-  const int64_t bq = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (bq >= bq_total) return;
-  const int64_t b = bq / Q;
-  float acc[CPL];
+  constexpr int NT = 2 * R + 2;
+  constexpr int HALF = NT / 2;
+  const int i0 = half * HALF;
+  auto gy_col = [&](int a, float (&col)[NT]) {  // gy at column a, 0 outside [0, K)
+    float gv[K];
 #pragma unroll
-  for (int c = 0; c < CPL; ++c) acc[c] = 0.0f;
-  const float cx0 = coords[2 * bq], cy0 = coords[2 * bq + 1];
-  const TG* gq = g + bq * (int64_t)(lv.n * K * K);
-  for (int l = 0; l < lv.n; ++l) {
-    const int H = lv.H[l], W = lv.W[l];
-    if (H <= 0 || W <= 0) continue;
-    const T* f2 = static_cast<const T*>(lv.ptr[l]) + b * ((int64_t)H * W * C) + lane * CPL;
-    df1_query_level<T, TG, R, CPL>(acc, f2, H, W, C, query_taps<R>(cx0, cy0, l, H, W),
-                                   gq + l * K * K, inv_sqrt_c, lane);
+    for (int c = 0; c < K; ++c) gv[c] = a >= 0 && a < K ? to_f(gl[a * K + c]) * inv_sqrt_c : 0.0f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float g0 = j < K ? gv[j] : 0.0f;
+      const float g1 = j >= 1 ? gv[j - 1] : 0.0f;
+      col[j] = (1.0f - tp.fy) * g0 + tp.fy * g1;
+    }
+  };
+  float gprev[NT], gcur[NT];
+  gy_col(i0 - 1, gprev);
+#pragma unroll
+  for (int ii = 0; ii < HALF; ++ii) {
+    gy_col(i0 + ii, gcur);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      tq[j * NT + i0 + ii] = (1.0f - tp.fx) * gcur[j] + tp.fx * gprev[j];
+      gprev[j] = gcur[j];
+    }
   }
-  float* o = df1 + bq * C + lane * CPL;
-#pragma unroll
-  for (int c = 0; c < CPL; c += 4)
-    *reinterpret_cast<float4*>(o + c) = make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]);
 }
 
 // ---------------------------------------------------------------------------
@@ -746,7 +1003,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 // into one accumulator: the products stay exact and only the order of the
 // fp32 sums changes. A tile whose box does not fit (kMaxBoxW, kMaxBoxRows,
 // kMaxWarpCols) takes the per-query route at that level, as K4: the warp's
-// queries one by one on the CUDA cores (the fp32 kernel's body) into a
+// queries one by one on the CUDA cores (df1_query_level) into a
 // shared buffer, then added to the accumulators. Each df1 element is
 // written once, at the end.
 constexpr int kDf1Pitch = kUnitC * 2 + 16;   // bytes a staged pixel
@@ -844,7 +1101,7 @@ __global__ void __launch_bounds__(kTileWarps * 32, 3)
       auto issue = [&](int u) {
         stage_unit<kDf1Pitch, kTileWarps * 32>(stage_s + (u % kDf1Stages) * kDf1StageBytes,
                                                f2 + ((int64_t)(box.by0 + u) * W + box.bx0) * C,
-                                               box.bw, C, tid);
+                                               box.bw, C * 2, tid);
       };
       // the first rows load while the table below is built
 #pragma unroll
@@ -852,40 +1109,10 @@ __global__ void __launch_bounds__(kTileWarps * 32, 3)
         if (u < box.bh) issue(u);
         cp_async_commit();
       }
-      // the warp's tap cotangents tab[mr][j][i], the fp32 kernel's arithmetic
-      // (row cotangents gy, then the tap's two columns): lane (mr, h) = (lane
-      // / 2, lane % 2) fills columns [h NT / 2, (h + 1) NT / 2) of query mr,
-      // each from two columns of gy, each column from K loads of g issued
-      // together
-      if (qm >= 0) {
-        constexpr int HALF = NT / 2;
-        const int i0 = (lane & 1) * HALF;
-        const TG* gl = g + (bq0 + qm) * (lv.n * KK) + l * KK;
-        float* tq = tab + (lane >> 1) * NT2;
-        auto gy_col = [&](int a, float (&col)[NT]) {  // gy at column a, 0 outside [0, K)
-          float gv[K];
-#pragma unroll
-          for (int c = 0; c < K; ++c)
-            gv[c] = a >= 0 && a < K ? to_f(gl[a * K + c]) * inv_sqrt_c : 0.0f;
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const float g0 = j < K ? gv[j] : 0.0f;
-            const float g1 = j >= 1 ? gv[j - 1] : 0.0f;
-            col[j] = (1.0f - tpm.fy) * g0 + tpm.fy * g1;
-          }
-        };
-        float gprev[NT], gcur[NT];
-        gy_col(i0 - 1, gprev);
-#pragma unroll
-        for (int ii = 0; ii < HALF; ++ii) {
-          gy_col(i0 + ii, gcur);
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            tq[j * NT + i0 + ii] = (1.0f - tpm.fx) * gcur[j] + tpm.fx * gprev[j];
-            gprev[j] = gcur[j];
-          }
-        }
-      }
+      // the warp's tap cotangents tab[mr][j][i]
+      if (qm >= 0)
+        tap_cotangents<TG, R>(tab + (lane >> 1) * NT2, g + (bq0 + qm) * (lv.n * KK) + l * KK,
+                              tpm, inv_sqrt_c, lane & 1);
       __syncwarp();
       const Taps ta = query_taps<R>(cxa, cya, l, H, W);
       const Taps tb = query_taps<R>(cxb, cyb, l, H, W);
@@ -984,6 +1211,206 @@ __global__ void __launch_bounds__(kTileWarps * 32, 3)
   for (int nt = 0; nt < NTILES; ++nt) {
     if (qa >= 0) *reinterpret_cast<float2*>(oa + nt * 8) = make_float2(acc[nt][0], acc[nt][1]);
     if (qb >= 0) *reinterpret_cast<float2*>(ob + nt * 8) = make_float2(acc[nt][2], acc[nt][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5, fp32 fmap2: the bf16 tiles in fp32. The block, its warps' 4 x 4
+// patches, the boxes, the staging one row ahead, the tap table and the
+// per-query route are the bf16 kernel's; the unit is 64 channels
+// (blockIdx.y; 256 bytes a pixel as the bf16 unit) and the products are
+// TF32 mma.sync m16n8k8 in three passes (mma3_tf32): M = the warp's 16
+// queries, K = 8 pixels of the row (k-steps from the warp's first column),
+// N = 8 channels (8 n-tiles, 32 fp32 accumulators a lane for the whole
+// launch). A (drows, from the table, 0 outside the query's window and past
+// the box) is split into hi and lo parts in registers; B comes from the
+// staged row with 16-byte loads: n-tile 4h + i, column n holds channel 32h
+// + 4n + i, so lane (g, t) reads channels 32h + 4g .. + 3 of pixels t and t
+// + 4 (bank-free at kDf1Pitch32) and writes channels 32h + 8t .. + 7 of its
+// queries at the end. Each df1 element is written once.
+constexpr int kDf1Pitch32 = kUnit32 * 4 + 32;      // bytes a staged pixel
+constexpr int kDf1Stage32Bytes = (kMaxBoxW + 8) * kDf1Pitch32;  // a k-step may read 7 past the box
+constexpr int kDf1FbStride32 = kUnit32 + 4;        // floats a query in the per-query route's buffer
+static_assert(kTileWarps * 16 * kDf1FbStride32 * 4 <= kDf1Stages * kDf1Stage32Bytes,
+              "the per-query route's buffer lives in the stages");
+template <int R>
+constexpr size_t df1_smem32() {
+  return kDf1Stages * (size_t)kDf1Stage32Bytes + (size_t)kTileWarps * 16 * (2 * R + 2) * (2 * R + 2) * 4;
+}
+
+template <typename TG, int R>
+__global__ void __launch_bounds__(kTileWarps * 32, 3)
+    ondemand_bwd_df1_tiled_fp32_kernel(Levels lv, const float* __restrict__ coords,
+                                       const TG* __restrict__ g, float* __restrict__ df1, int Q,
+                                       int C, int grid_w, int tiles_x, int tiles_per_b,
+                                       float inv_sqrt_c) {
+  constexpr int K = 2 * R + 1;
+  constexpr int KK = K * K;
+  constexpr int NT = 2 * R + 2;
+  constexpr int NT2 = NT * NT;
+  constexpr int NTILES = kUnit32 / 8;  // n-tiles of the block's channels
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* stage = smem;
+  float* tab = reinterpret_cast<float*>(smem + kDf1Stages * kDf1Stage32Bytes);
+  __shared__ int wrange[kTileWarps][5];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int64_t b = blockIdx.x / tiles_per_b;
+  const int tile = blockIdx.x % tiles_per_b;
+  const int ch0 = blockIdx.y * kUnit32;
+  const int row0 = (tile / tiles_x) * kTileWarps;             // the tile's first grid row
+  const int colw = (tile % tiles_x) * kTileCols + 4 * warp;  // the warp's first column
+  tab += warp * 16 * NT2;
+  auto query = [&](int mr) {
+    const int col = colw + (mr & 3);
+    const int q = (row0 + (mr >> 2)) * grid_w + col;
+    return col < grid_w && q < Q ? q : -1;
+  };
+  const int64_t bq0 = b * Q;
+
+  // zero the stages once: a k-step past a box multiplies what lies there by 0
+  for (int i = tid; i < kDf1Stages * kDf1Stage32Bytes / 16; i += kTileWarps * 32)
+    reinterpret_cast<uint4*>(stage)[i] = make_uint4(0, 0, 0, 0);
+
+  const int qm = query(lane >> 1), qa = query(g8), qb = query(g8 + 8);
+  float cxm = 0.0f, cym = 0.0f, cxa = 0.0f, cya = 0.0f, cxb = 0.0f, cyb = 0.0f;
+  if (qm >= 0) { cxm = coords[2 * (bq0 + qm)]; cym = coords[2 * (bq0 + qm) + 1]; }
+  if (qa >= 0) { cxa = coords[2 * (bq0 + qa)]; cya = coords[2 * (bq0 + qa) + 1]; }
+  if (qb >= 0) { cxb = coords[2 * (bq0 + qb)]; cyb = coords[2 * (bq0 + qb) + 1]; }
+
+  float acc[NTILES][4];
+#pragma unroll
+  for (int nt = 0; nt < NTILES; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+
+  for (int l = 0; l < lv.n; ++l) {
+    const int H = lv.H[l], W = lv.W[l];
+    if (H <= 0 || W <= 0) continue;  // uniform over the block
+    const float* f2 = static_cast<const float*>(lv.ptr[l]) + b * ((int64_t)H * W * C) + ch0;
+    const Taps tpm = query_taps<R>(cxm, cym, l, H, W);
+    const int xlo = max(tpm.x, 0), xhi = min(tpm.x + NT - 1, W - 1);
+    const int ylo = max(tpm.y, 0), yhi = min(tpm.y + NT - 1, H - 1);
+    const bool has = qm >= 0 && xlo <= xhi && ylo <= yhi;
+    const TileBox box = tile_box(has, xlo, xhi, ylo, yhi, wrange, warp, lane);
+    if (box.tiled) {
+      const uint32_t stage_s = smem_addr(stage);
+      auto issue = [&](int u) {
+        stage_unit<kDf1Pitch32, kTileWarps * 32>(
+            stage_s + (u % kDf1Stages) * kDf1Stage32Bytes,
+            f2 + ((int64_t)(box.by0 + u) * W + box.bx0) * C, box.bw, C * 4, tid);
+      };
+      // the first rows load while the table below is built
+#pragma unroll
+      for (int u = 0; u < kDf1Stages - 1; ++u) {
+        if (u < box.bh) issue(u);
+        cp_async_commit();
+      }
+      if (qm >= 0)
+        tap_cotangents<TG, R>(tab + (lane >> 1) * NT2, g + (bq0 + qm) * (lv.n * KK) + l * KK,
+                              tpm, inv_sqrt_c, lane & 1);
+      __syncwarp();
+      const Taps ta = query_taps<R>(cxa, cya, l, H, W);
+      const Taps tb = query_taps<R>(cxb, cyb, l, H, W);
+      const float* taba = tab + g8 * NT2;
+      const float* tabb = tab + (g8 + 8) * NT2;
+      const int nks = box.warp_has ? (box.wx1 - box.wx0 + 8) / 8 : 0;  // k-steps of 8 pixels
+      const int bx_last = box.bx0 + box.bw - 1;  // past it a k-step reads stale pixels: A = 0
+      for (int u = 0; u < box.bh; ++u) {
+        cp_async_wait<kDf1Stages - 2>();  // row u has landed
+        __syncthreads();                  // ... for every thread; row u - 1 is done
+        if (u + kDf1Stages - 1 < box.bh) issue(u + kDf1Stages - 1);  // into row u - 1's stage
+        cp_async_commit();
+        const int y = box.by0 + u;
+        if (box.warp_has && y >= box.wy0 && y <= box.wy1) {  // uniform over the warp
+          const int ja = y - ta.y, jb = y - tb.y;
+          const bool ra = qa >= 0 && ja >= 0 && ja < NT, rb = qb >= 0 && jb >= 0 && jb < NT;
+          const unsigned char* st = stage + (u % kDf1Stages) * kDf1Stage32Bytes +
+                                    t4 * kDf1Pitch32 + g8 * 16;
+          for (int ks = 0; ks < nks; ++ks) {
+            const int xs = box.wx0 + 8 * ks;
+            // A: rows g8 (query qa) and g8 + 8 (qb), pixels xs + t4 (k = t4) and xs + t4 + 4
+            uint32_t ah[4], al[4];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int x = xs + t4 + 4 * e;
+              const int ia = x - ta.x, ib = x - tb.x;
+              const bool in = x <= bx_last;
+              split_tf32(in && ra && ia >= 0 && ia < NT ? taba[ja * NT + ia] : 0.0f, ah[2 * e],
+                         al[2 * e]);
+              split_tf32(in && rb && ib >= 0 && ib < NT ? tabb[jb * NT + ib] : 0.0f,
+                         ah[2 * e + 1], al[2 * e + 1]);
+            }
+            // B: pixels xs + t4 (b0) and xs + t4 + 4 (b1), channels 32h + 4 g8 + i
+            const unsigned char* px = st + (xs - box.bx0) * kDf1Pitch32;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float4 c0 = *reinterpret_cast<const float4*>(px + h * 128);
+              const float4 c1 = *reinterpret_cast<const float4*>(px + 4 * kDf1Pitch32 + h * 128);
+              const float v0[4] = {c0.x, c0.y, c0.z, c0.w}, v1[4] = {c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                uint32_t bh0, bl0, bh1, bl1;
+                split_tf32(v0[i], bh0, bl0);
+                split_tf32(v1[i], bh1, bl1);
+                mma3_tf32(acc[4 * h + i], ah, al, bh0, bh1, bl0, bl1);
+              }
+            }
+          }
+        }
+      }
+    } else {
+      // per-query route: the warp's queries one by one, lane channels 2 lane..
+      // of the block's unit, into a buffer in the stages, then into the
+      // accumulators
+      float* fb = reinterpret_cast<float*>(stage) + warp * 16 * kDf1FbStride32;
+      for (int mr = 0; mr < 16; ++mr) {
+        const float cx = __shfl_sync(kFull, cxm, 2 * mr);
+        const float cy = __shfl_sync(kFull, cym, 2 * mr);
+        const int q = query(mr);
+        if (q < 0) continue;  // uniform over the warp
+        float a2[2] = {0.0f, 0.0f};
+        df1_query_level<float, TG, R, 2>(a2, f2 + lane * 2, H, W, C, query_taps<R>(cx, cy, l, H, W),
+                                         g + (bq0 + q) * (lv.n * KK) + l * KK, inv_sqrt_c, lane);
+        store_vec<2>(fb + mr * kDf1FbStride32 + lane * 2, a2);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int nt = 0; nt < NTILES; ++nt) {
+        const int n = 32 * (nt >> 2) + 8 * t4 + (nt & 3);  // channels of columns 2 t4, 2 t4 + 1
+        if (qa >= 0) {
+          acc[nt][0] += fb[g8 * kDf1FbStride32 + n];
+          acc[nt][1] += fb[g8 * kDf1FbStride32 + n + 4];
+        }
+        if (qb >= 0) {
+          acc[nt][2] += fb[(g8 + 8) * kDf1FbStride32 + n];
+          acc[nt][3] += fb[(g8 + 8) * kDf1FbStride32 + n + 4];
+        }
+      }
+      __syncthreads();
+      // zero the stages again: a k-step may read past a box into the buffer
+      for (int i = tid; i < kDf1Stages * kDf1Stage32Bytes / 16; i += kTileWarps * 32)
+        reinterpret_cast<uint4*>(stage)[i] = make_uint4(0, 0, 0, 0);
+    }
+    __syncthreads();  // wrange and the stages are rewritten for the next level
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = ch0 + 32 * h + 8 * t4;
+    if (qa >= 0) {
+      float* o = df1 + (bq0 + qa) * C + n;
+      *reinterpret_cast<float4*>(o) =
+          make_float4(acc[4 * h][0], acc[4 * h + 1][0], acc[4 * h + 2][0], acc[4 * h + 3][0]);
+      *reinterpret_cast<float4*>(o + 4) =
+          make_float4(acc[4 * h][1], acc[4 * h + 1][1], acc[4 * h + 2][1], acc[4 * h + 3][1]);
+    }
+    if (qb >= 0) {
+      float* o = df1 + (bq0 + qb) * C + n;
+      *reinterpret_cast<float4*>(o) =
+          make_float4(acc[4 * h][2], acc[4 * h + 1][2], acc[4 * h + 2][2], acc[4 * h + 3][2]);
+      *reinterpret_cast<float4*>(o + 4) =
+          make_float4(acc[4 * h][3], acc[4 * h + 1][3], acc[4 * h + 2][3], acc[4 * h + 3][3]);
+    }
   }
 }
 
@@ -1314,20 +1741,16 @@ bool kernel_shape_ok(int B, int Q, int C, int radius) {
 
 float inv_sqrt(int C) { return (float)(1.0 / sqrt((double)C)); }
 
-template <typename T, typename TO, int R, int CPL>
-void launch_fwd(const void* f1, const Levels& lv, const void* coords, void* out,
-                int64_t bq, int Q, int C, cudaStream_t s) {
-  const unsigned blocks = (unsigned)((bq + kWarps - 1) / kWarps);
-  ondemand_fwd_kernel<T, TO, R, CPL><<<blocks, kWarps * 32, 0, s>>>(
-      static_cast<const T*>(f1), lv, static_cast<const float*>(coords),
-      static_cast<TO*>(out), bq, Q, inv_sqrt(C));
-}
-
-template <typename TO, int R, int C>
+// K4's tiled kernel for operand type T (bf16 or fp32).
+template <typename T, typename TO, int R, int C>
 cudaError_t launch_fwd_tiled(const void* f1, const Levels& lv, const void* coords, void* out,
                              int B, int Q, int grid_w, cudaStream_t s) {
-  auto kernel = ondemand_fwd_tiled_kernel<TO, R, C>;
-  const size_t smem = fwd_smem<TO>();
+  constexpr bool kBf16 = sizeof(T) == 2;
+  auto kernel = [] {
+    if constexpr (kBf16) return ondemand_fwd_tiled_kernel<TO, R, C>;
+    else return ondemand_fwd_tiled_fp32_kernel<TO, R, C>;
+  }();
+  const size_t smem = kBf16 ? fwd_smem<TO>() : fwd32_smem<R>();
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1335,56 +1758,41 @@ cudaError_t launch_fwd_tiled(const void* f1, const Levels& lv, const void* coord
   if (tg.tiles > 0x7fffffff) return cudaErrorInvalidConfiguration;
   g_last_tiles = (int)tg.tiles;
   g_last_levels = lv.n;
-  kernel<<<(unsigned)tg.tiles, kTileWarps * 32, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(f1), lv, static_cast<const float*>(coords),
-      static_cast<TO*>(out), Q, tg.grid_w, tg.tiles_x, tg.tiles_per_b, inv_sqrt(C));
+  const dim3 grid((unsigned)tg.tiles, kBf16 ? 1u : (unsigned)lv.n);  // fp32: a block a level
+  kernel<<<grid, kTileWarps * 32, smem, s>>>(
+      static_cast<const T*>(f1), lv, static_cast<const float*>(coords), static_cast<TO*>(out),
+      Q, tg.grid_w, tg.tiles_x, tg.tiles_per_b, inv_sqrt(C));
   return cudaSuccess;
 }
 
 template <typename T, typename TO>
 cudaError_t fwd_by_shape(const void* f1, const Levels& lv, const void* coords, void* out, int B,
                          int Q, int C, int radius, int grid_w, cudaStream_t s) {
-  const int64_t bq = (int64_t)B * Q;
-  if constexpr (sizeof(T) == 2) {
-    if (radius == 4) {
-      return C == 256 ? launch_fwd_tiled<TO, 4, 256>(f1, lv, coords, out, B, Q, grid_w, s)
-                      : launch_fwd_tiled<TO, 4, 128>(f1, lv, coords, out, B, Q, grid_w, s);
-    }
-    return C == 256 ? launch_fwd_tiled<TO, 3, 256>(f1, lv, coords, out, B, Q, grid_w, s)
-                    : launch_fwd_tiled<TO, 3, 128>(f1, lv, coords, out, B, Q, grid_w, s);
-  } else {
-    g_last_tiles = 0;
-    if (radius == 4) {
-      if (C == 256) launch_fwd<T, TO, 4, 8>(f1, lv, coords, out, bq, Q, C, s);
-      else launch_fwd<T, TO, 4, 4>(f1, lv, coords, out, bq, Q, C, s);
-    } else {
-      if (C == 256) launch_fwd<T, TO, 3, 8>(f1, lv, coords, out, bq, Q, C, s);
-      else launch_fwd<T, TO, 3, 4>(f1, lv, coords, out, bq, Q, C, s);
-    }
-    return cudaSuccess;
+  if (radius == 4) {
+    return C == 256 ? launch_fwd_tiled<T, TO, 4, 256>(f1, lv, coords, out, B, Q, grid_w, s)
+                    : launch_fwd_tiled<T, TO, 4, 128>(f1, lv, coords, out, B, Q, grid_w, s);
   }
+  return C == 256 ? launch_fwd_tiled<T, TO, 3, 256>(f1, lv, coords, out, B, Q, grid_w, s)
+                  : launch_fwd_tiled<T, TO, 3, 128>(f1, lv, coords, out, B, Q, grid_w, s);
 }
 
-template <typename T, typename TG, int R, int CPL>
-void launch_df1(const Levels& lv, const void* coords, const void* g, void* df1,
-                int64_t bq, int Q, int C, cudaStream_t s) {
-  const unsigned blocks = (unsigned)((bq + kWarps - 1) / kWarps);
-  ondemand_bwd_df1_kernel<T, TG, R, CPL><<<blocks, kWarps * 32, 0, s>>>(
-      lv, static_cast<const float*>(coords), static_cast<const TG*>(g),
-      static_cast<float*>(df1), bq, Q, inv_sqrt(C));
-}
-
-template <typename TG, int R>
+// K5's tiled kernel for fmap2 type T (bf16 or fp32): a block per tile and
+// staged unit of channels.
+template <typename T, typename TG, int R>
 cudaError_t launch_df1_tiled(const Levels& lv, const void* coords, const void* g, void* df1,
                              int B, int Q, int C, int grid_w, cudaStream_t s) {
-  auto kernel = ondemand_bwd_df1_tiled_kernel<TG, R>;
-  const size_t smem = df1_smem<R>();
+  constexpr bool kBf16 = sizeof(T) == 2;
+  auto kernel = [] {
+    if constexpr (kBf16) return ondemand_bwd_df1_tiled_kernel<TG, R>;
+    else return ondemand_bwd_df1_tiled_fp32_kernel<TG, R>;
+  }();
+  const size_t smem = kBf16 ? df1_smem<R>() : df1_smem32<R>();
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const TileGrid tg = tile_grid(lv, B, Q, grid_w);
   if (tg.tiles > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)tg.tiles, (unsigned)(C / kUnitC));
+  const dim3 grid((unsigned)tg.tiles, (unsigned)(C / (kBf16 ? kUnitC : kUnit32)));
   kernel<<<grid, kTileWarps * 32, smem, s>>>(lv, static_cast<const float*>(coords),
                                              static_cast<const TG*>(g), static_cast<float*>(df1),
                                              Q, C, tg.grid_w, tg.tiles_x, tg.tiles_per_b,
@@ -1395,20 +1803,8 @@ cudaError_t launch_df1_tiled(const Levels& lv, const void* coords, const void* g
 template <typename T, typename TG>
 cudaError_t df1_by_shape(const Levels& lv, const void* coords, const void* g, void* df1, int B,
                          int Q, int C, int radius, int grid_w, cudaStream_t s) {
-  const int64_t bq = (int64_t)B * Q;
-  if constexpr (sizeof(T) == 2) {
-    return radius == 4 ? launch_df1_tiled<TG, 4>(lv, coords, g, df1, B, Q, C, grid_w, s)
-                       : launch_df1_tiled<TG, 3>(lv, coords, g, df1, B, Q, C, grid_w, s);
-  } else {
-    if (radius == 4) {
-      if (C == 256) launch_df1<T, TG, 4, 8>(lv, coords, g, df1, bq, Q, C, s);
-      else launch_df1<T, TG, 4, 4>(lv, coords, g, df1, bq, Q, C, s);
-    } else {
-      if (C == 256) launch_df1<T, TG, 3, 8>(lv, coords, g, df1, bq, Q, C, s);
-      else launch_df1<T, TG, 3, 4>(lv, coords, g, df1, bq, Q, C, s);
-    }
-    return cudaSuccess;
-  }
+  return radius == 4 ? launch_df1_tiled<T, TG, 4>(lv, coords, g, df1, B, Q, C, grid_w, s)
+                     : launch_df1_tiled<T, TG, 3>(lv, coords, g, df1, B, Q, C, grid_w, s);
 }
 
 constexpr size_t df2_smem() {
@@ -1457,9 +1853,7 @@ extern "C" int raft_corr_ondemand_fwd(const void* f1, const void* const* level_p
       !kernel_shape_ok(B, Q, C, radius) || in_dtype < 0 || in_dtype > 1 ||
       out_dtype < 0 || out_dtype > 1 || grid_w < 0)
     return (int)cudaErrorInvalidValue;
-  const int64_t bq = (int64_t)B * Q;
-  if (bq == 0) return (int)cudaSuccess;
-  if ((bq + kWarps - 1) / kWarps > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  if ((int64_t)B * Q == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (in_dtype * 2 + out_dtype) {
@@ -1472,9 +1866,9 @@ extern "C" int raft_corr_ondemand_fwd(const void* f1, const void* const* level_p
   return (int)cudaGetLastError();
 }
 
-// Routes of the last bf16 raft_corr_ondemand_fwd launch in this process:
-// counts[0] (tile, level) pairs tiled, counts[1] per query, counts[2] the
-// tiles recorded (at most 65536; 0 after an fp32 launch). Synchronous.
+// Routes of the last raft_corr_ondemand_fwd launch in this process (either
+// dtype): counts[0] (tile, level) pairs tiled, counts[1] per query, counts[2]
+// the tiles recorded (at most 65536). Synchronous.
 extern "C" int raft_corr_ondemand_fwd_routes(long long* counts) {
   counts[0] = counts[1] = counts[2] = 0;
   const int tiles = g_last_tiles < kMaxRecordedTiles ? g_last_tiles : kMaxRecordedTiles;
@@ -1495,7 +1889,7 @@ extern "C" int raft_corr_ondemand_fwd_routes(long long* counts) {
 
 // fmap2 levels [B, Hl, Wl, C] (f2_dtype), coords [B, Q, 2] fp32 level-0,
 // g [B, Q, n_levels*K*K] (g_dtype), df1 [B, Q, C] fp32 (every element written).
-// grid_w: the query grid's width for the bf16 kernel's tiles, as for
+// grid_w: the query grid's width for the kernel's tiles, as for
 // raft_corr_ondemand_fwd (0: level 0's when Q = H0 * W0, else 16).
 extern "C" int raft_corr_ondemand_bwd_df1(const void* const* level_ptrs, const int* level_h,
                                           const int* level_w, int n_levels,
@@ -1507,9 +1901,7 @@ extern "C" int raft_corr_ondemand_bwd_df1(const void* const* level_ptrs, const i
       !kernel_shape_ok(B, Q, C, radius) || f2_dtype < 0 || f2_dtype > 1 || g_dtype < 0 ||
       g_dtype > 1 || grid_w < 0)
     return (int)cudaErrorInvalidValue;
-  const int64_t bq = (int64_t)B * Q;
-  if (bq == 0) return (int)cudaSuccess;
-  if ((bq + kWarps - 1) / kWarps > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  if ((int64_t)B * Q == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (f2_dtype * 2 + g_dtype) {

@@ -14,14 +14,13 @@ scale). On the card the kernel VJPs are:
     bf16 values);
   - `ondemand_vjp`: K5 (the fmap1 gradient) and K6 with its prepass (the
     fmap2 levels' gradients), the backward of K4
-    (`kernels/corr_ondemand.py::ondemand_corr_pyramid_cuda`), fp32 fmaps, a
-    warp per query on the CUDA cores; against autograd of
-    `corr_ondemand_fwd_plain`;
-  - `ondemand_vjp_stream`: the JAX package's h-streaming route has no fp32
+    (`kernels/corr_ondemand.py::ondemand_corr_pyramid_cuda`), fp32 fmaps
+    (K4 and K5 on tiles of 4x16 queries, fp32 products as three TF32
+    passes of `mma.sync`); against autograd of `corr_ondemand_fwd_plain`;
+  - `ondemand_vjp_stream`: the JAX package's h-streaming route has no
     counterpart here (one kernel per function covers every frame size), so
-    this entry runs the other route the port has: bf16 fmaps, on which K4
-    and K5 stage tiles of 4x16 queries for the tensor cores (`mma.sync`),
-    held to the bf16 bar.
+    this entry runs the port's other dtype: bf16 fmaps, on which K4 and K5
+    take the same tiles with bf16 products, held to the bf16 bar.
 
 Inputs are built as the JAX checks build them (`np.random.default_rng(0)`
 for the lookup, `default_rng(1)` for on-demand, in the same order), so a

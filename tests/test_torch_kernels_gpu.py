@@ -408,14 +408,13 @@ def test_ondemand_tiling_cases(cuda, kind, C, radius, dtype):
     ref = co.corr_ondemand_fwd_plain(f1, levels, coords, radius, torch.float32)
     if dtype == torch.float32:
         assert _max_rel(out, ref) <= 2e-5
-        assert routes["tiles"] == 0  # fp32 operands: a warp per query
     else:
         assert torch.all((out.float() - ref).abs() <= _bf16_step(ref) + 2e-5 * ref.abs().max())
-        assert routes["tiles"] == 2 * -(-w // 16) * -(-h // 4)  # tiles of 4 x 16 queries
-        if kind == "uniform":  # level 0's box (128 columns) is wider than a tile stages
-            assert routes["per_query"] >= 1
-        if kind == "smooth":
-            assert routes["per_query"] == 0 and routes["tiled"] == routes["tiles"] * 4
+    assert routes["tiles"] == 2 * -(-w // 16) * -(-h // 4)  # tiles of 4 x 16 queries, either dtype
+    if kind == "uniform":  # level 0's box (128 columns) is wider than a tile stages
+        assert routes["per_query"] >= 1
+    if kind == "smooth":
+        assert routes["per_query"] == 0 and routes["tiled"] == routes["tiles"] * 4
     if kind == "far_one":
         assert torch.all(out[:, [70, 75]] == 0)
     gen = torch.Generator(device="cuda").manual_seed(radius)
@@ -435,6 +434,85 @@ def test_ondemand_tiling_cases(cuda, kind, C, radius, dtype):
         assert a.shape == b.shape and (b.numel() == 0 or _max_rel(a, b) <= 2e-5)
     assert co.LAUNCHES == {"corr_ondemand_fwd": 1, "corr_ondemand_bwd_df1": 0,
                            "corr_ondemand_bwd_df2": 2, "corr_ondemand_df2_plan": 3}
+
+
+def _fp32_routes_case(kind, C, radius):
+    """fp32 operands for K4's and K5's fp32 tiles: a TILING_SHAPES kind (its
+    coords), `rows` (Q != H0 * W0: the first 9*13 - 3 queries of the ragged
+    grid, tiles of rows of 16 consecutive queries) or `empty_level` (a 7x16
+    map: the coarsest level is 0x2, and a far row)."""
+    cuda = torch.device("cuda")
+    if kind == "empty_level":
+        return _ondemand_case(cuda, 7, 16, C, torch.float32, seed=C + radius)
+    h, w = (9, 13) if kind == "rows" else TILING_SHAPES[kind]
+    f1, levels, _ = _ondemand_case(cuda, h, w, C, torch.float32, seed=radius + C, far=False)
+    coords = _tiling_coords("ragged" if kind == "rows" else kind, 2, h, w,
+                            seed=len(kind) + radius).to(cuda)
+    if kind == "rows":
+        f1, coords = f1[:, : h * w - 3].contiguous(), coords[:, : h * w - 3].contiguous()
+    return f1, levels, coords
+
+
+@pytest.mark.parametrize("C,radius", [(128, 3), (256, 4), (128, 4), (256, 3)])
+@pytest.mark.parametrize("kind", sorted(TILING_SHAPES) + ["empty_level", "rows"])
+def test_ondemand_fp32_tiles(cuda, kind, C, radius):
+    """K4 and K5 with fp32 operands (the fp32 tiles: three TF32 passes on
+    the tensor cores) against their plain versions at max_rel 2e-5 on each
+    input set that could break the tiles, the route record of the fp32
+    launch, and each kernel twice, bit for bit (every output written once)."""
+    from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
+
+    f1, levels, coords = _fp32_routes_case(kind, C, radius)
+    B, Q, _ = coords.shape
+    co.reset_launches()
+    out = co.corr_ondemand_fwd(f1, levels, coords, radius, torch.float32)
+    routes = co.corr_ondemand_fwd_routes()
+    assert _max_rel(out, co.corr_ondemand_fwd_plain(f1, levels, coords, radius)) <= 2e-5
+    assert torch.equal(out, co.corr_ondemand_fwd(f1, levels, coords, radius, torch.float32))
+    h0, w0 = levels[0].shape[1:3]
+    grid_w = w0 if Q == h0 * w0 else 16
+    assert routes["tiles"] == B * -(-grid_w // 16) * -(-(-(-Q // grid_w)) // 4)
+    assert routes["tiled"] + routes["per_query"] == routes["tiles"] * sum(
+        f.shape[1] > 0 and f.shape[2] > 0 for f in levels)
+    if kind == "uniform":
+        assert routes["per_query"] >= 1
+    if kind in ("smooth", "ragged", "rows"):
+        assert routes["per_query"] == 0
+    if kind == "empty_level":
+        assert levels[-1].shape[1] == 0 and torch.all(out[..., -((2 * radius + 1) ** 2):] == 0)
+        assert torch.all(out[:, :16] == 0)  # the far row
+    gen = torch.Generator(device="cuda").manual_seed(C + radius)
+    for g_dtype in (torch.float32, torch.bfloat16):
+        g = torch.randn(out.shape, device=cuda, generator=gen).to(g_dtype)
+        df1 = co.corr_ondemand_bwd_df1(levels, coords, g, radius)
+        assert df1.dtype == torch.float32 and df1.shape == (B, Q, C)
+        assert _max_rel(df1, co.corr_ondemand_bwd_df1_plain(levels, coords, g, radius)) <= 2e-5
+        assert torch.equal(df1, co.corr_ondemand_bwd_df1(levels, coords, g, radius))
+        if kind == "empty_level":
+            assert torch.all(df1[:, :16] == 0)
+    assert co.LAUNCHES["corr_ondemand_fwd"] == 2 and co.LAUNCHES["corr_ondemand_bwd_df1"] == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ondemand_slab_matches_frame(cuda, dtype):
+    """A 16-row slab of a 32x40 frame's queries, given the frame's grid
+    width, gets from K4 and K5 each value of the whole frame's call bit for
+    bit (the spatial split's contract): its tiles are the frame's tiles."""
+    from raft_optical_flow_tpu_torch.kernels import corr_ondemand as co
+
+    h, w, radius = 32, 40, 4
+    f1, levels, _ = _ondemand_case(cuda, h, w, 256, dtype, seed=11, far=False)
+    coords = _tiling_coords("smooth", 2, h, w, seed=12).to(cuda)
+    coords[:, 5 * w: 5 * w + 3] += 1.0e6  # a far query in a tile of the slab's frame rows
+    out = co.corr_ondemand_fwd(f1, levels, coords, radius, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    g = torch.randn(out.shape, device=cuda, generator=gen).to(dtype)
+    df1 = co.corr_ondemand_bwd_df1(levels, coords, g, radius)
+    for r0 in (0, 16):
+        sl = slice(r0 * w, (r0 + 16) * w)
+        f1s, cs, gs = (t[:, sl].contiguous() for t in (f1, coords, g))
+        assert torch.equal(co.corr_ondemand_fwd(f1s, levels, cs, radius, dtype, grid_w=w), out[:, sl])
+        assert torch.equal(co.corr_ondemand_bwd_df1(levels, cs, gs, radius, grid_w=w), df1[:, sl])
 
 
 DF1_GRIDS = [(46, 62), (7, 16), (1, 5)]
