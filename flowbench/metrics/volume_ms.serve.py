@@ -1,0 +1,15 @@
+"""volume_ms.serve: device ms per call of the kernels launched inside the
+program's `raft.volume` spans (ops/corr.py::build_corr_pyramid_from_fmaps:
+the all-pairs volume and its pooled levels). A kernel is tied to its launch
+by the profiler's correlation id, so kernels that run after their span has
+closed on the host count. Nothing to read where the program opens no such
+span."""
+
+SPAN = "raft.volume"
+
+
+def read(rec):
+    if rec.kind != "serve" or rec.trace is None or not rec.profiled:
+        return None
+    s = rec.trace.kernel_s_in_range(SPAN)
+    return None if s is None else 1e3 * s / rec.profiled

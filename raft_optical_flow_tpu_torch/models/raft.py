@@ -49,6 +49,15 @@ Policies (`RAFTConfig.compute_dtype`):
 backward is autograd of the unfused reference, in fp32 only: training under
 the bf16 policy with `fused_gru` raises ValueError (the JAX package has no
 working semantics there, ROADMAP.md Queue 3).
+
+Spans (`utils/profiling.py::span`, recorded only while a profiler records):
+`raft.forward` around the call; `raft.encode` twice, around fnet and
+around cnet, with `raft.volume` (the pyramid, or the on-demand fmap2
+levels) between them; `raft.loop` around the GRU loop, and in each
+iteration `raft.lookup` and `raft.update` (the update block's call);
+`raft.upsample` after the loop in test mode, in each iteration in
+training. Under `remat` the backward's recomputation opens each
+iteration's spans again.
 """
 
 from __future__ import annotations
@@ -77,6 +86,7 @@ from raft_optical_flow_tpu_torch.ops.corr import (
 )
 from raft_optical_flow_tpu_torch.ops.grid import coords_grid, upflow8
 from raft_optical_flow_tpu_torch.ops.upsample import convex_upsample
+from raft_optical_flow_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,13 +187,14 @@ class RAFT(nn.Module):
             fp32_policy()
         elif not test_mode and cfg.fused_gru and not cfg.small:
             raise ValueError(BF16_TRAINING_REFUSED)
-        if test_mode:
-            with torch.no_grad():
-                return self._test(*self._encode(image1, image2, False, False, None),
-                                  iters, flow_init)
-        # freeze_bn: BN uses running stats even in training; dropout follows train
-        state = self._encode(image1, image2, train, train and not freeze_bn, generator)
-        return self._train(*state, iters, flow_init)
+        with span("raft.forward"):
+            if test_mode:
+                with torch.no_grad():
+                    return self._test(*self._encode(image1, image2, False, False, None),
+                                      iters, flow_init)
+            # freeze_bn: BN uses running stats even in training; dropout follows train
+            state = self._encode(image1, image2, train, train and not freeze_bn, generator)
+            return self._train(*state, iters, flow_init)
 
     def _encode(self, image1, image2, train, bn_train, generator):
         """Encoders and correlation state: (pyramid or (fmap1, fmap2 levels),
@@ -191,36 +202,41 @@ class RAFT(nn.Module):
         cfg = self.config
         dtype = cfg.compute_dtype
         N, H, W, _ = image1.shape
-        image1 = 2.0 * (image1.to(self._wide) / 255.0) - 1.0
-        image2 = 2.0 * (image2.to(self._wide) / 255.0) - 1.0
-        pair = torch.cat([image1, image2], dim=0).permute(0, 3, 1, 2).to(dtype)
-        fmaps = self.fnet(pair, train, bn_train, generator, blocks=2)
-        fmaps = fmaps.to(self._wide).permute(0, 2, 3, 1)
-        fmap1, fmap2 = fmaps[:N], fmaps[N:]
-        if cfg.alternate_corr:
-            # pool in fp32, then round once (bf16 policy) for every iteration
-            levels = [fmap2]
-            for _ in range(cfg.corr_levels - 1):
-                levels.append(avg_pool2x2(levels[-1].permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
-            corr_state = (fmap1.to(dtype).contiguous(),
-                          tuple(f.to(dtype).contiguous() for f in levels))
-        else:
-            corr_state = build_corr_pyramid_from_fmaps(fmap1, fmap2, cfg.corr_levels, dtype)
+        with span("raft.encode"):
+            image1 = 2.0 * (image1.to(self._wide) / 255.0) - 1.0
+            image2 = 2.0 * (image2.to(self._wide) / 255.0) - 1.0
+            pair = torch.cat([image1, image2], dim=0).permute(0, 3, 1, 2).to(dtype)
+            fmaps = self.fnet(pair, train, bn_train, generator, blocks=2)
+            fmaps = fmaps.to(self._wide).permute(0, 2, 3, 1)
+            fmap1, fmap2 = fmaps[:N], fmaps[N:]
+        with span("raft.volume"):
+            if cfg.alternate_corr:
+                # pool in fp32, then round once (bf16 policy) for every iteration
+                levels = [fmap2]
+                for _ in range(cfg.corr_levels - 1):
+                    levels.append(avg_pool2x2(levels[-1].permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
+                corr_state = (fmap1.to(dtype).contiguous(),
+                              tuple(f.to(dtype).contiguous() for f in levels))
+            else:
+                corr_state = build_corr_pyramid_from_fmaps(fmap1, fmap2, cfg.corr_levels, dtype)
 
-        cnet = self.cnet(image1.permute(0, 3, 1, 2).to(dtype), train, bn_train, generator)
-        cnet = cnet.to(self._wide)
-        net, inp = torch.split(cnet, [cfg.hidden_dim, cfg.context_dim], dim=1)
-        net = torch.tanh(net).to(dtype)
-        inp = F.relu(inp).to(dtype)
-        coords0 = coords_grid(N, H // 8, W // 8, device=image1.device, dtype=self._wide)
+        with span("raft.encode"):
+            cnet = self.cnet(image1.permute(0, 3, 1, 2).to(dtype), train, bn_train, generator)
+            cnet = cnet.to(self._wide)
+            net, inp = torch.split(cnet, [cfg.hidden_dim, cfg.context_dim], dim=1)
+            net = torch.tanh(net).to(dtype)
+            inp = F.relu(inp).to(dtype)
+            coords0 = coords_grid(N, H // 8, W // 8, device=image1.device, dtype=self._wide)
         return corr_state, net, inp, coords0
 
     def _step(self, corr_state, net, inp, coords0, coords1, test_mode: bool):
         """One GRU iteration: (net, mask or None, coords1 + delta)."""
         dtype = self.config.compute_dtype
-        corr = self._lookup(corr_state, coords1, test_mode).permute(0, 3, 1, 2)
+        with span("raft.lookup"):
+            corr = self._lookup(corr_state, coords1, test_mode).permute(0, 3, 1, 2)
         flow = (coords1 - coords0).to(dtype).permute(0, 3, 1, 2)
-        net, mask, delta = self.update_block(net, inp, corr, flow)
+        with span("raft.update"):
+            net, mask, delta = self.update_block(net, inp, corr, flow)
         return net, mask, coords1 + delta.to(self._wide).permute(0, 2, 3, 1)
 
     def _test(self, corr_state, net, inp, coords0, iters, flow_init):
@@ -228,16 +244,19 @@ class RAFT(nn.Module):
         N, h, w, _ = coords0.shape
         coords1 = coords0 if flow_init is None else coords0 + flow_init.to(self._wide)
         mask = None
-        for _ in range(iters):
-            net, mask, coords1 = self._step(corr_state, net, inp, coords0, coords1, True)
+        with span("raft.loop"):
+            for _ in range(iters):
+                net, mask, coords1 = self._step(corr_state, net, inp, coords0, coords1, True)
 
-        flow_lo = coords1 - coords0
-        if cfg.small:
-            flow_up = upflow8(flow_lo)
-        else:
-            if mask is None:  # iters == 0: the JAX package starts from a zero mask
-                mask = torch.zeros(N, 64 * 9, h, w, dtype=cfg.compute_dtype, device=coords0.device)
-            flow_up = convex_upsample(flow_lo, mask.to(self._wide).permute(0, 2, 3, 1))
+        with span("raft.upsample"):
+            flow_lo = coords1 - coords0
+            if cfg.small:
+                flow_up = upflow8(flow_lo)
+            else:
+                if mask is None:  # iters == 0: the JAX package starts from a zero mask
+                    mask = torch.zeros(N, 64 * 9, h, w, dtype=cfg.compute_dtype,
+                                       device=coords0.device)
+                flow_up = convex_upsample(flow_lo, mask.to(self._wide).permute(0, 2, 3, 1))
         return flow_lo, flow_up
 
     def _train_iteration(self, corr_state, net, inp, coords0, coords1):
@@ -245,24 +264,28 @@ class RAFT(nn.Module):
         cfg = self.config
         coords1 = coords1.detach()  # gradients flow through net, not coords
         net, mask, coords1 = self._step(corr_state, net, inp, coords0, coords1, False)
-        flow_lo = coords1 - coords0
-        if cfg.small:
-            return net, coords1, upflow8(flow_lo)
-        mask = mask.to(self._wide).permute(0, 2, 3, 1)
-        if cfg.checkpoint_upsample:
-            return net, coords1, checkpoint(convex_upsample, flow_lo, mask, use_reentrant=False)
-        return net, coords1, convex_upsample(flow_lo, mask)
+        with span("raft.upsample"):
+            flow_lo = coords1 - coords0
+            if cfg.small:
+                return net, coords1, upflow8(flow_lo)
+            mask = mask.to(self._wide).permute(0, 2, 3, 1)
+            if cfg.checkpoint_upsample:
+                return net, coords1, checkpoint(convex_upsample, flow_lo, mask,
+                                                use_reentrant=False)
+            return net, coords1, convex_upsample(flow_lo, mask)
 
     def _train(self, corr_state, net, inp, coords0, iters, flow_init):
         coords1 = coords0 if flow_init is None else coords0 + flow_init.to(self._wide)
         preds = []
-        for _ in range(iters):
-            if self.config.remat:
-                net, coords1, flow_up = checkpoint(
-                    self._train_iteration, corr_state, net, inp, coords0, coords1,
-                    use_reentrant=False,
-                )
-            else:
-                net, coords1, flow_up = self._train_iteration(corr_state, net, inp, coords0, coords1)
-            preds.append(flow_up)
+        with span("raft.loop"):
+            for _ in range(iters):
+                if self.config.remat:
+                    net, coords1, flow_up = checkpoint(
+                        self._train_iteration, corr_state, net, inp, coords0, coords1,
+                        use_reentrant=False,
+                    )
+                else:
+                    net, coords1, flow_up = self._train_iteration(corr_state, net, inp, coords0,
+                                                                  coords1)
+                preds.append(flow_up)
         return torch.stack(preds)

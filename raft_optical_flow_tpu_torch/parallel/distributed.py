@@ -41,6 +41,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from raft_optical_flow_tpu_torch.utils.profiling import span
+
 # The group the batch is split over, inside `data_parallel`. A context
 # variable rather than an argument: BatchNorm, the losses and the random
 # draws that read it lie several calls under the step, in code that runs
@@ -306,19 +308,21 @@ def batch_ratio(num: torch.Tensor, den: torch.Tensor, eps: float = 0.0,
 def average_gradients(params: Iterable[torch.Tensor]) -> None:
     """Inside `data_parallel`: replace each parameter's gradient (a missing
     one counts as zeros) by its mean over the processes, through one
-    all-reduce of a flat buffer. Outside, a no-op."""
+    all-reduce of a flat buffer (the span `train.allreduce`). Outside, a
+    no-op."""
     group = _DATA_GROUP.get()
     if group is None:
         return
-    params = list(params)
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group)
-    flat /= dist.get_world_size(group)
-    offset = 0
-    for p in params:
-        n = p.numel()
-        p.grad = flat[offset:offset + n].view_as(p)
-        offset += n
+    with span("train.allreduce"):
+        params = list(params)
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group)
+        flat /= dist.get_world_size(group)
+        offset = 0
+        for p in params:
+            n = p.numel()
+            p.grad = flat[offset:offset + n].view_as(p)
+            offset += n
 
 
 def mean_over_ranks(metrics: Dict[str, object], keep: Tuple[str, ...] = ()) -> Dict[str, object]:

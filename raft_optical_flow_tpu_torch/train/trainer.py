@@ -20,6 +20,12 @@ inside `parallel.distributed.data_parallel` over the mesh's 'data' axis
 before the clip, metrics averaged), so N processes take the step one
 process takes on the global batch. Parameters and the step generator start
 as process 0's; process 0 logs and writes the checkpoints.
+
+Spans (`utils/profiling.py::span`, recorded only while a profiler records):
+`train.loss`, `train.backward`, `train.allreduce` (with a data group
+only: `parallel/distributed.py::average_gradients`), `train.optimizer` (the
+clip and the update) in the step, beside the forward's `raft.forward`;
+`train.data`, the wait for each batch, in `train_loop`.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from raft_optical_flow_tpu_torch.losses.sequence import sequence_loss
 from raft_optical_flow_tpu_torch.models.raft import RAFT, RAFTConfig
 from raft_optical_flow_tpu_torch.parallel import distributed
 from raft_optical_flow_tpu_torch.train.configs import StageConfig
+from raft_optical_flow_tpu_torch.utils.profiling import span
 
 Schedule = Callable[[int], float]
 
@@ -210,7 +217,8 @@ def raft_train_step(state: TrainState, batch: Dict[str, torch.Tensor], *, iters:
     state.optimizer.zero_grad(set_to_none=True)
     preds = model(image1, image2, iters=iters, test_mode=False, train=True,
                   freeze_bn=freeze_bn, generator=gen)
-    loss, metrics = sequence_loss(preds, batch["flow"], batch["valid"], gamma=gamma)
+    with span("train.loss"):
+        loss, metrics = sequence_loss(preds, batch["flow"], batch["valid"], gamma=gamma)
     return finish_step(state, loss, metrics)
 
 
@@ -219,9 +227,11 @@ def finish_step(state: TrainState, loss: torch.Tensor, metrics: Dict[str, Any]) 
     optimizer step and the count: the step's metrics, detached, with `loss`
     and `grad_norm`, each averaged over the processes (`grad_norm` is
     global already)."""
-    loss.backward()
+    with span("train.backward"):
+        loss.backward()
     distributed.average_gradients(state.optimizer.param_groups[0]["params"])
-    grad_norm = state.optimizer.step()
+    with span("train.optimizer"):
+        grad_norm = state.optimizer.step()
     state.step += 1
     out = {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
     return distributed.mean_over_ranks(dict(out, loss=loss.detach(), grad_norm=grad_norm),
@@ -372,7 +382,9 @@ def train_loop(trainer, data_iter, num_steps: int, name: str, val_freq: int, val
                                               device=trainer.device)
     try:
         for step in range(start, num_steps):
-            metrics = trainer.train_step(next(data_iter))
+            with span("train.data"):
+                batch = next(data_iter)
+            metrics = trainer.train_step(batch)
             if lead:
                 trainer.logger.push({k: float(v) for k, v in metrics.items()})
             if (step + 1) % val_freq == 0:

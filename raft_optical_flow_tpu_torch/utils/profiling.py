@@ -10,7 +10,9 @@ Counterpart of `raft_optical_flow_tpu/utils/profiling.py` (the reference's
   - `memory_analysis(fn, *args)`: measured bytes of one call on the card;
   - `compare_models`: parameters, latency and memory of RAFT-small,
     LiteFlowNet3-S, SimpleFlowNet and IFNet at batch 1;
-  - `trace`: `torch.profiler` around a block, written as a Chrome trace.
+  - `trace`: `torch.profiler` around a block, written as a Chrome trace;
+  - `span(name)`: a host range of the port's own (`SPANS` lists every one)
+    while a profiler records, one branch otherwise.
 """
 
 from __future__ import annotations
@@ -23,6 +25,37 @@ from typing import Callable, Dict, List, Mapping, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
+
+# Every range the port opens: RAFT's layers (where each opens:
+# models/raft.py), then the train step's phases (train/trainer.py).
+SPANS = (
+    "raft.forward",
+    "raft.encode",
+    "raft.volume",
+    "raft.loop",
+    "raft.lookup",
+    "raft.update",
+    "raft.upsample",
+    "train.data",
+    "train.loss",
+    "train.backward",
+    "train.allreduce",
+    "train.optimizer",
+)
+
+_NO_SPAN = contextlib.nullcontext()
+# bound once: the attribute chain costs more than the call
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A `record_function` range named `name` on the launching thread while
+    a profiler records (any `torch.profiler` or `torch.autograd.profiler`,
+    `trace` among them), so the trace ties each kernel to the span it was
+    launched in (by correlation id) on the device's clock; otherwise one
+    shared null context, so an untraced span costs one branch."""
+    return record_function(name) if _profiler_enabled() else _NO_SPAN
 
 
 def _default_device() -> str:
@@ -34,7 +67,8 @@ def trace(log_dir: str = "profile"):
     """`torch.profiler.profile` over the block (CPU and, with a card, CUDA
     activity); on exit the trace is written to `log_dir/trace.json`
     (Chrome's trace format, which Perfetto reads). Yields the profiler, whose
-    `key_averages()` sums the kernels by name."""
+    `key_averages()` sums the kernels by name. The port's spans (`SPANS`)
+    appear in every trace it writes, as `user_annotation` ranges."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)

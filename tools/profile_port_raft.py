@@ -24,39 +24,33 @@ its backward at batch 8, 384x768 (`cli/train_flow.py`), no optimizer step.
 256x384, 4 iterations, `checkpoints/raft_small.npz`, the occlusion masks on;
 `tools/unsup_bootstrap_tpu.sh`'s round-5 crop), optimizer included.
 Seeded random weights (but RAFT-small's) and data. The
-call runs twice to warm up, then once under `torch.profiler`. Prints the
-device time by kernel (the 20 largest, then each of the port's), the time
-per group (the port's CUDA kernels, convolutions, matmuls, the rest), and
-the device busy share:
-summed kernel time over the host-clock wall time of the profiled call (the
-profiler's own host overhead is inside that wall time, so the share is a
-lower bound). `--trace PATH` also writes the Chrome trace. Needs a CUDA card.
+call runs twice to warm up, then once under `torch.profiler`. Prints, for
+each of the port's spans the call opened (`utils/profiling.py::SPANS`:
+RAFT's layers and the train step's phases), how often it opened, its host
+ms and the device ms of the kernels launched inside it (by launch time, on
+any thread, so the backward's kernels that autograd's device thread
+launches count in `train.backward`; spans nest, so each row holds its
+children), the device ms of kernels launched outside every span, and the
+device time of the 20 largest kernels by name. `--trace PATH` also writes
+the Chrome trace. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
-import re
 import sys
-import time
+import tempfile
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GROUPS = (
-    ("port kernels (lookup, GRU)", re.compile(r"lookup_level_kernel|coarse_fused_kernel|"
-                                              r"wide_lookup_kernel|"
-                                              r"lookup_level_bwd_kernel|ondemand_|"
-                                              r"gru_pass_|gru_weight_image")),
-    # cuDNN's FFT algorithms (fp32 without TF32 picks them for some shapes)
-    # run as fft, region_transform and complex-product kernels
-    ("convolution", re.compile(r"conv|fprop|implicit|dgrad|wgrad|cudnn|xmma|fft|"
-                               r"region_transform|mult_and_sum_complex", re.I)),
-    ("matmul", re.compile(r"gemm|cutlass|cublas", re.I)),
-)
+# the spans that no other span holds
+OUTERMOST = ("raft.forward", "train.data", "train.loss", "train.backward", "train.allreduce",
+             "train.optimizer")
 
 
 def _serve_call(config, batch, iters):
@@ -146,7 +140,9 @@ def main() -> int:
         print("profile_port_raft: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from flowbench.trace import STRETCH, Trace
     from raft_optical_flow_tpu_torch.models import RAFTConfig
+    from raft_optical_flow_tpu_torch.utils.profiling import SPANS
 
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     train = args.mode == "train"
@@ -166,10 +162,23 @@ def main() -> int:
         run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        with record_function(STRETCH):
+            run()
+            torch.cuda.synchronize()
+    path = args.trace
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    else:
+        fd, path = tempfile.mkstemp(prefix="profile_port_raft_", suffix=".json")
+        os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        if not args.trace:
+            os.unlink(path)
+    trace = Trace(events)
 
     kernels = []
     for e in prof.key_averages():
@@ -187,25 +196,24 @@ def main() -> int:
     print(f"{torch.cuda.get_device_name(0)} model={args.model} mode={args.mode} batch={batch} "
           f"iters={iters} "
           f"dtype={args.dtype} alternate_corr={args.alternate_corr} remat={args.remat} "
-          f"fused_gru={args.fused_gru}: wall {wall_ms:.3f} ms (profiled), "
-          f"device {device_ms:.3f} ms, busy share {device_ms / wall_ms:.4f}, "
+          f"fused_gru={args.fused_gru}: device {device_ms:.3f} ms, "
           f"{sum(k[1] for k in kernels)} kernel launches")
-    totals = {name: 0.0 for name, _ in GROUPS}
-    totals["other (elementwise, norms, copies)"] = 0.0
-    for ms, _, key in kernels:
-        group = next((name for name, pat in GROUPS if pat.search(key)), None)
-        totals[group or "other (elementwise, norms, copies)"] += ms
-    for name, ms in totals.items():
-        print(f"  group {name}: {ms:.3f} ms ({ms / device_ms:.4f})")
+    opened = [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    inside = 0.0
+    for name in SPANS:
+        ranges = [e for e in opened if e["name"] == name]
+        if not ranges:
+            continue
+        device_s = trace.kernel_s_in_range(name) or 0.0
+        inside += device_s if name in OUTERMOST else 0.0
+        host_ms = sum(float(e["dur"]) for e in ranges) / 1e3
+        print(f"  span {name:16s} {len(ranges):4d}x  host {host_ms:9.3f} ms  "
+              f"device {device_s * 1e3:9.3f} ms")
+    if inside:
+        print(f"  outside every span: device {(trace.kernel_s() - inside) * 1e3:.3f} ms")
     for ms, count, key in kernels[:20]:
         print(f"  {ms:9.3f} ms {count:6d}x  {key[:110]}")
-    print("  the port's kernels:")
-    for ms, count, key in kernels:
-        if GROUPS[0][1].search(key):
-            print(f"  {ms:9.3f} ms {count:6d}x  {key[:110]}")
     if args.trace:
-        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
-        prof.export_chrome_trace(args.trace)
         print(f"trace: {args.trace}")
     return 0
 
