@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases device,kernels,small,standard,train,ondemand,fused_gru,lfn3,
                                     simple_flow,ifnet,flow_train,data_eval,frames,utils,parallel,
-                                    multicard,timing]
+                                    multicard,timing,small_update]
 
 Phases (each prints one line when it ends; any failure raises and the exit
 code is not 0):
@@ -278,6 +278,18 @@ code is not 0):
             bf16 weight bytes per launch worked out from the launch plan. K8's yardstick is
             the four F.grid_sample calls.
 
+  small_update  K9 (kernels/small_update.py), RAFT-small's update-block
+            convolutions, at the serving shape (batch 16, 55x128): each of its
+            eight convolutions against its plain version (max_rel 2e-5), then
+            timed: the kernel's device time as CUDA-graph replays (so the
+            host's launch time is not in it) and in an eager loop, the plain
+            version, the library (cuDNN's fp32 convolution over the
+            concatenated input, TF32 off, the algorithm it chooses today) and
+            the bound, the operations at the fp32-accurate rate (495 / 3
+            TFLOP/s) and at the fp32 CUDA-core rate (67); the whole step
+            against the block's module path; K9's launches in a RAFT-small
+            serving forward of 32 iterations.
+
 With every phase run (the default) the last two lines are a JSON object of
 per-kernel numbers and `{"ok": true, "device": {...}}`. Runs on CUDA only: it
 exits non-zero without a card, and imports only torch, numpy and the port.
@@ -305,7 +317,7 @@ from raft_optical_flow_tpu_torch.utils.grad_parity import VJP_TOL  # the VJP gat
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "kernels", "small", "standard", "train", "ondemand", "fused_gru", "lfn3",
           "simple_flow", "ifnet", "flow_train", "data_eval", "frames", "utils", "parallel",
-          "multicard", "timing")
+          "multicard", "timing", "small_update")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16, dense tensor cores
@@ -329,6 +341,7 @@ K6_TPU = "raft_optical_flow_tpu/kernels/corr_ondemand_pallas.py:266"  # _bwd_df2
 K7_SRC = "raft_optical_flow_tpu_torch/kernels/csrc/gru_fused.cu"
 K7_TPU = "raft_optical_flow_tpu/kernels/gru_fused.py:80"  # _gru_pass_kernel
 K8_TPU = "raft_optical_flow_tpu/kernels/corr_lookup.py:431"  # _fused_lookup_kernel
+K9_SRC = "raft_optical_flow_tpu_torch/kernels/csrc/small_update.cu"
 
 
 def log(msg: str) -> None:
@@ -4710,6 +4723,111 @@ def _time_k3(radius, dt):
     return row
 
 
+def phase_small_update(state):
+    from raft_optical_flow_tpu_torch.kernels import small_update as su
+    from raft_optical_flow_tpu_torch.models import RAFT, RAFTConfig
+    from raft_optical_flow_tpu_torch.models.layers import fp32_policy
+    from raft_optical_flow_tpu_torch.models.update import SmallUpdateBlock
+
+    fp32_policy()
+    B, H, W = 16, (SERVE_HW[0] + 4) // 8, SERVE_HW[1] // 8
+    torch.manual_seed(41)
+    blk = SmallUpdateBlock(196, 96, 64).cuda().eval()
+    g = torch.Generator(device="cuda").manual_seed(42)
+    net = torch.tanh(torch.randn(B, 96, H, W, device="cuda", generator=g))
+    inp = torch.relu(torch.randn(B, 64, H, W, device="cuda", generator=g))
+    corr = torch.randn(B, H, W, 196, device="cuda", generator=g).permute(0, 3, 1, 2)
+    flow = (4 * torch.randn(B, H, W, 2, device="cuda", generator=g)).permute(0, 3, 1, 2)
+    p = su.block_params(blk)
+    enc, gru, head = blk.encoder, blk.gru, blk.flow_head
+    saved = dict(su.LAUNCHES)
+    rows, total = {}, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                       "fp32_core_floor_ms": 0.0}
+    with torch.no_grad():
+        # the iteration's inputs as K9 makes them; h channels-last, as from the
+        # second iteration on
+        cor = su.conv([corr], p["convc1"], "bias_relu")
+        flo1 = su.conv([flow], p["convf1"], "bias_relu")
+        flo = su.conv([flo1], p["convf2"], "bias_relu")
+        out = su.conv([cor, flo], p["conv"], "bias_relu")
+        h0 = net.contiguous(memory_format=torch.channels_last)
+        z, rh = su.conv([h0, inp, out, flow], p["gru_zr"], "gru_zr", h=h0)
+        h1 = su.conv([rh, inp, out, flow], p["gru_q"], "gru_q", h=h0, z=z)
+        fh = su.conv([h1], p["head1"], "bias_relu")
+        cases = (
+            ("convc1", [corr], "bias_relu", {}, enc.convc1.weight, enc.convc1.bias),
+            ("convf1", [flow], "bias_relu", {}, enc.convf1.weight, enc.convf1.bias),
+            ("convf2", [flo1], "bias_relu", {}, enc.convf2.weight, enc.convf2.bias),
+            ("conv", [cor, flo], "bias_relu", {}, enc.conv.weight, enc.conv.bias),
+            ("gru_zr", [h0, inp, out, flow], "gru_zr", {"h": h0},
+             torch.cat([gru.convz.weight, gru.convr.weight]),
+             torch.cat([gru.convz.bias, gru.convr.bias])),
+            ("gru_q", [rh, inp, out, flow], "gru_q", {"h": h0, "z": z}, gru.convq.weight,
+             gru.convq.bias),
+            ("head1", [h1], "bias_relu", {}, head.conv1.weight, head.conv1.bias),
+            ("head2", [fh], "bias", {}, head.conv2.weight, head.conv2.bias),
+        )
+        for name, segs, epi, kw, w, b in cases:
+            fn = lambda: su.conv(segs, p[name], epi, **kw)  # noqa: E731
+            plain_fn = lambda: su.conv_plain(segs, p[name], epi, **kw)  # noqa: E731
+            got, want = fn(), plain_fn()
+            rel = max(float((a - r).abs().max() / r.abs().max()) for a, r in zip(
+                got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple)
+                else (want,)))
+            if not rel <= 2e-5:
+                raise AssertionError(f"K9 {name}: max_rel {rel:.3e} against its plain version")
+            del got, want
+            x = torch.cat(segs, 1)
+            pad = w.shape[-1] // 2
+            lib_fn = lambda: F.conv2d(x, w, b, padding=pad)  # noqa: E731
+            p1 = cuda_ms(plain_fn, 2, warmup=1)
+            k_a = graph_ms(fn, 5)
+            lib = graph_ms(lib_fn, 2, reps=3)
+            k_b = graph_ms(fn, 5)
+            p2 = cuda_ms(plain_fn, 2, warmup=1)
+            eager = cuda_ms(fn, 20)
+            ops = 2 * B * H * W * w.numel()
+            row = {"ms": min(k_a, k_b), "ms_readings": [k_a, k_b], "eager_ms": eager,
+                   "plain_ms": min(p1, p2), "library_ms": lib, "ops": ops,
+                   "bound_ms": ops / FP32_ACCURATE_FLOPS_PER_S * 1e3,
+                   "fp32_core_floor_ms": ops / FP32_FLOPS_PER_S * 1e3, "max_rel": rel}
+            rows[name] = row
+            for k in total:
+                total[k] += row[k]
+            log(f"small_update {name}: N={w.shape[0]} K={w[0].numel()} kernel {k_a:.4f}/{k_b:.4f}"
+                f" ms (eager loop {eager:.4f}), plain {p1:.4f}/{p2:.4f} ms, cuDNN {lib:.4f} ms, "
+                f"bound {row['bound_ms']:.4f} ms (three-pass TF32) / "
+                f"{row['fp32_core_floor_ms']:.4f} ms (CUDA cores), {ops / 1e9:.3f} GFLOP, "
+                f"{row['bound_ms'] / row['ms'] * 100:.1f}% of the bound, max_rel {rel:.2e}")
+            del x
+        step_k9 = graph_ms(lambda: blk(h0, inp, corr, flow), 5, reps=5)
+        real = su.declines
+        su.declines = lambda *a: "module path"
+        try:
+            step_mod = graph_ms(lambda: blk(h0, inp, corr, flow), 2, reps=3)
+        finally:
+            su.declines = real
+    log(f"small_update per iteration (8 launches): kernels {total['ms']:.4f} ms, plain "
+        f"{total['plain_ms']:.4f}, cuDNN {total['library_ms']:.4f}, bound "
+        f"{total['bound_ms']:.4f} ms (three-pass TF32) / {total['fp32_core_floor_ms']:.4f} ms "
+        f"(CUDA cores); the whole step {step_k9:.4f} ms, the module path {step_mod:.4f} ms")
+    del blk, net, inp, corr, flow, h0, z, rh, h1, fh, cor, flo, flo1, out
+    model = RAFT(RAFTConfig(small=True), device="cuda")
+    frames = [torch.rand(1, 440, 1024, 3, device="cuda", generator=g) * 255 for _ in range(2)]
+    su.reset_launches()
+    with torch.no_grad():
+        model(*frames, iters=ITERS)
+    torch.cuda.synchronize()
+    launches = su.LAUNCHES["small_update_conv"]
+    if launches != 8 * ITERS:
+        raise AssertionError(f"K9 launched {launches} times in a {ITERS}-iteration forward, "
+                             f"not {8 * ITERS}")
+    su.LAUNCHES.update(saved)
+    state["small_update"] = {"rows": rows, "total": total, "step_ms": step_k9,
+                             "module_step_ms": step_mod, "launches": launches}
+    log(f"phase small_update: ok, {launches} launches a serving forward of {ITERS} iterations")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=None,
@@ -4776,6 +4894,13 @@ def main() -> int:
         })
     kernels[-1]["note"] = ("no model path launches it (as in the JAX package); launches "
                            "counted over one call of its public entry")
+    k9 = state["small_update"]
+    kernels.append({
+        "name": "small_update_conv", "route": "cuda", "source": K9_SRC, "replaces": None,
+        "launches": k9["launches"], "max_abs_err": None, **k9["total"],
+        "bound_by": "operations", "per": "GRU iteration: 8 launches",
+        "instances": k9["rows"],
+        "note": "replaces no TPU kernel: the JAX package leaves these convolutions to XLA"})
     by_name = {k["name"]: k for k in kernels}
     by_name["corr_ondemand_df2_plan"]["note"] = "K6's prepass (part of K6's port)"
     for name, keys in (("corr_lookup_level", ("ms_smooth",)),

@@ -3,8 +3,10 @@ heads, NCHW inside.
 
 Counterpart of `raft_optical_flow_tpu/models/update.py`. `SepConvGRU(fused=
 True)` runs both passes through the fused kernel K7
-(`kernels/gru_fused.py::SepConvGRUFused`) on the same parameters. Submodule
-names are the flax names (`mask_0`, `flow_head`).
+(`kernels/gru_fused.py::SepConvGRUFused`) on the same parameters.
+`SmallUpdateBlock` runs its eight convolutions through K9
+(`kernels/small_update.py`) when serving fp32 on the card. Submodule names
+are the flax names (`mask_0`, `flow_head`).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from raft_optical_flow_tpu_torch.kernels import small_update
 from raft_optical_flow_tpu_torch.kernels.gru_fused import GATES, SepConvGRUFused
 from raft_optical_flow_tpu_torch.models.layers import conv
 
@@ -108,14 +111,30 @@ class BasicMotionEncoder(nn.Module):
 
 
 class SmallUpdateBlock(nn.Module):
+    """RAFT-small's update block. On fp32 CUDA inputs with no gradient
+    recorded, outside `torch.export`, it runs its eight convolutions as K9
+    launches (`kernels/small_update.py`; h' comes back channels-last, so the
+    next iteration reads it in place); otherwise, and always for training,
+    its modules (`small_update.declines` says why)."""
+
     def __init__(self, corr_channels: int, hidden_dim: int = 96, context_dim: int = 64):
         super().__init__()
         self.encoder = SmallMotionEncoder(corr_channels)
         self.gru = ConvGRU(hidden_dim, context_dim + 82)
         self.flow_head = FlowHead(hidden_dim, 128)
+        self._k9 = None  # (parameter versions, K9's laid-out weights)
+
+    def _k9_params(self):
+        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if self._k9 is None or self._k9[0] != key:
+            self._k9 = (key, small_update.block_params(self))
+        return self._k9[1]
 
     def forward(self, net, inp, corr, flow):
         """NCHW in, (net, None, delta) out: the small model has no mask head."""
+        if small_update.declines((net, inp, corr, flow), tuple(self.parameters())) is None:
+            net, delta = small_update.small_update_step(self._k9_params(), net, inp, corr, flow)
+            return net, None, delta
         x = torch.cat([inp, self.encoder(flow, corr)], dim=1)
         net = self.gru(net, x)
         return net, None, self.flow_head(net)

@@ -6,6 +6,7 @@ SimpleFlowNet, IFNet, or RAFT-small's UFlow training step.
     python3 tools/profile_port_raft.py --mode train [--batch 4] [--iters 12]
     python3 tools/profile_port_raft.py [--mode train] --alternate_corr [--remat]
     python3 tools/profile_port_raft.py --fused_gru [--alternate_corr]
+    python3 tools/profile_port_raft.py --small --dtype fp32 [--span raft.update]
     python3 tools/profile_port_raft.py --model simple_flow|ifnet [--mode train] [--dtype fp32]
     python3 tools/profile_port_raft.py --model uflow [--batch 4] [--iters 4]
 
@@ -16,7 +17,7 @@ sequence loss, backward, clipped AdamW). `--alternate_corr` runs the
 on-demand correlation (K4 forward, K5 and K6 backward) instead of the
 materialized volume; `--remat` recomputes each GRU iteration in the
 backward; `--fused_gru` runs the SepConvGRU through K7 (serving, or fp32
-training). `--model simple_flow` or `ifnet`: serving at 432x1024
+training); `--small` runs RAFT-small. `--model simple_flow` or `ifnet`: serving at 432x1024
 (`tools/bench_families.py`), batch 16 by default; training, the supervised
 loss of the JAX trainers (`simple_flow_loss`; IFNet's flow[..., 2:4]) and
 its backward at batch 8, 384x768 (`cli/train_flow.py`), no optimizer step.
@@ -31,17 +32,20 @@ ms and the device ms of the kernels launched inside it (by launch time, on
 any thread, so the backward's kernels that autograd's device thread
 launches count in `train.backward`; spans nest, so each row holds its
 children), the device ms of kernels launched outside every span, and the
-device time of the 20 largest kernels by name. `--trace PATH` also writes
+device time of the 20 largest kernels by name; `--span NAME` also prints
+the kernels launched inside that span, by name. `--trace PATH` also writes
 the Chrome trace. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import os
 import sys
 import tempfile
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -123,6 +127,28 @@ def _uflow_call(batch, iters):
     return lambda: trainer.train_step(frames)
 
 
+def kernels_in_span(events, name):
+    """{kernel name: [device ms, launches]} of the kernels whose launch (the
+    runtime call of the same correlation id) started inside a host range
+    `name`."""
+    ranges = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                    if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                    and e.get("name") == name)
+    starts = [r[0] for r in ranges]
+    launched = {(e.get("args") or {}).get("correlation"): float(e["ts"]) for e in events
+                if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver")}
+    by = defaultdict(lambda: [0.0, 0])
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") != "kernel":
+            continue
+        t = launched.get((e.get("args") or {}).get("correlation"))
+        i = -1 if t is None else bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t < ranges[i][1]:
+            by[e["name"]][0] += float(e["dur"]) / 1e3
+            by[e["name"]][1] += 1
+    return by
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("raft", "simple_flow", "ifnet", "uflow"), default="raft")
@@ -134,6 +160,8 @@ def main() -> int:
     ap.add_argument("--alternate_corr", action="store_true", help="on-demand correlation")
     ap.add_argument("--remat", action="store_true", help="recompute each GRU iteration")
     ap.add_argument("--fused_gru", action="store_true", help="the SepConvGRU through K7")
+    ap.add_argument("--small", action="store_true", help="RAFT-small (model raft)")
+    ap.add_argument("--span", metavar="NAME", help="list the kernels launched inside this span")
     ap.add_argument("--trace", metavar="PATH", help="write the Chrome trace to PATH")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -153,8 +181,9 @@ def main() -> int:
     if args.model == "uflow":
         run = _uflow_call(batch, iters)
     elif args.model == "raft":
-        config = RAFTConfig(compute_dtype=dtype, alternate_corr=args.alternate_corr,
-                            remat=args.remat, fused_gru=args.fused_gru)
+        config = RAFTConfig(small=args.small, compute_dtype=dtype,
+                            alternate_corr=args.alternate_corr, remat=args.remat,
+                            fused_gru=args.fused_gru)
         run = (_train_call if train else _serve_call)(config, batch, iters)
     else:
         run = _family_call(args.model, dtype, train, batch)
@@ -196,7 +225,7 @@ def main() -> int:
     print(f"{torch.cuda.get_device_name(0)} model={args.model} mode={args.mode} batch={batch} "
           f"iters={iters} "
           f"dtype={args.dtype} alternate_corr={args.alternate_corr} remat={args.remat} "
-          f"fused_gru={args.fused_gru}: device {device_ms:.3f} ms, "
+          f"fused_gru={args.fused_gru} small={args.small}: device {device_ms:.3f} ms, "
           f"{sum(k[1] for k in kernels)} kernel launches")
     opened = [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
     inside = 0.0
@@ -213,6 +242,11 @@ def main() -> int:
         print(f"  outside every span: device {(trace.kernel_s() - inside) * 1e3:.3f} ms")
     for ms, count, key in kernels[:20]:
         print(f"  {ms:9.3f} ms {count:6d}x  {key[:110]}")
+    if args.span:
+        inside_span = sorted(kernels_in_span(events, args.span).items(), key=lambda kv: -kv[1][0])
+        print(f"kernels launched inside {args.span}: {len(inside_span)} names")
+        for key, (ms, count) in inside_span:
+            print(f"  {ms:9.3f} ms {count:6d}x  {key[:110]}")
     if args.trace:
         print(f"trace: {args.trace}")
     return 0
