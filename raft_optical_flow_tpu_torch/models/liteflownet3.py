@@ -9,6 +9,16 @@ Flows inside are divided by div_flow = 20, with the per-level multiplier
 full size; PseudoReg instead adds a 2x refinement stage (PseudoSubpixel,
 PseudoRegularization) and a 2x transposed conv.
 
+Spans (`utils/profiling.py::span`): `lfn3.forward` around the call; the
+stages, disjoint and covering it, `lfn3.features` (mean offsets, the
+rescale, the feature extractor, the image pyramid), `lfn3.deform`,
+`lfn3.modulate`, `lfn3.match`, `lfn3.subpixel`, `lfn3.regularize` (each a
+module's call at one level, with the casts of its outputs) and
+`lfn3.upsample` (PseudoReg, the final transposed conv, the rescale back,
+the confidence's resize); inside them the mechanisms `lfn3.corr` (a
+correlation, its leaky ReLU and the division by C), `lfn3.warp` and
+`lfn3.smooth` (the distance-softmax smoothing).
+
 Modules run NCHW inside; the public tensors are NHWC. The frame pair is
 folded into the batch through the feature extractor, frame 1 of every
 sample first. Module names mirror the flax names (`feature_net.convs_0_0`,
@@ -47,6 +57,7 @@ from raft_optical_flow_tpu_torch.ops.grid import resize_bilinear, widen
 from raft_optical_flow_tpu_torch.ops.padding import InputScaler
 from raft_optical_flow_tpu_torch.ops.spatial_corr import spatial_correlation_sample
 from raft_optical_flow_tpu_torch.ops.warp import warp_lfn3
+from raft_optical_flow_tpu_torch.utils.profiling import span
 
 BGR_ADD = (-0.454253, -0.434631, -0.411618)  # the reference's mean offsets, BGR order
 FEAT_CH = (192, 128, 96, 64)  # feature channels at levels 0..3 (strides 32..4)
@@ -71,13 +82,15 @@ class LFN3Config:
 
 def _warp(x: torch.Tensor, flow: torch.Tensor, div_flow: float) -> torch.Tensor:
     """`warp_lfn3` of NCHW x by NCHW flow."""
-    return nchw(warp_lfn3(nhwc(x), nhwc(flow), div_flow))
+    with span("lfn3.warp"):
+        return nchw(warp_lfn3(nhwc(x), nhwc(flow), div_flow))
 
 
 def _corr(f1: torch.Tensor, f2: torch.Tensor, patch: int, dilation: int = 1) -> torch.Tensor:
     """leaky_relu of the NCHW correlation, divided by the channel count."""
-    c = spatial_correlation_sample(nhwc(f1), nhwc(f2), patch, dilation)
-    return nchw(leaky_relu(c)) / f1.shape[1]
+    with span("lfn3.corr"):
+        c = spatial_correlation_sample(nhwc(f1), nhwc(f2), patch, dilation)
+        return nchw(leaky_relu(c)) / f1.shape[1]
 
 
 def _unfold_neighbors(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -90,10 +103,11 @@ def _unfold_neighbors(x: torch.Tensor, k: int) -> torch.Tensor:
 def _distance_smooth(flow: torch.Tensor, dist: torch.Tensor, k: int) -> torch.Tensor:
     """The flow averaged over each k x k neighbourhood with the weights
     softmax(-dist^2) over the k*k channels of dist [N, k*k, H, W]."""
-    dist = -torch.square(dist)
-    dist = torch.exp(dist - dist.amax(dim=1, keepdim=True))
-    div = dist.sum(dim=1, keepdim=True)
-    return (_unfold_neighbors(flow, k) * dist[:, None]).sum(dim=2) / div
+    with span("lfn3.smooth"):
+        dist = -torch.square(dist)
+        dist = torch.exp(dist - dist.amax(dim=1, keepdim=True))
+        div = dist.sum(dim=1, keepdim=True)
+        return (_unfold_neighbors(flow, k) * dist[:, None]).sum(dim=2) / div
 
 
 class FeatureExtractor(nn.Module):
@@ -334,26 +348,28 @@ class LiteFlowNet3(nn.Module):
     def forward(self, images: torch.Tensor, training: bool = False):
         if self.config.compute_dtype == torch.float32:
             fp32_policy()
-        if training:
-            return self._forward(images, True)
-        with torch.no_grad():
-            return self._forward(images, False)
+        with span("lfn3.forward"):
+            if training:
+                return self._forward(images, True)
+            with torch.no_grad():
+                return self._forward(images, False)
 
     def _forward(self, images: torch.Tensor, training: bool):
         cfg = self.config
         B, _, H, W, _ = images.shape
-        x = (images + torch.tensor(BGR_ADD, dtype=images.dtype, device=images.device)).flip(-1)
-        scaler = InputScaler(images.shape, stride=cfg.output_stride)
-        # frame 1 of every sample, then frame 2 of every sample
-        x = scaler.fill(x.transpose(0, 1).reshape(2 * B, H, W, 3))
-        # a copy to NCHW, also when traced: the card's upsample returns
-        # channels-last, but its fake version (what torch.export traces)
-        # says NCHW, so a `.contiguous()` would leave the exported program
-        # and its convs running channels-last (one-ulp drift from eager)
-        x = nchw(x).clone(memory_format=torch.contiguous_format)
-        feats = [(f[:B], f[B:]) for f in self.feature_net(x)]
-        images_pyr = [nchw(resize_bilinear(nhwc(x), f1.shape[2:])).split(B)
-                      for f1, _ in feats]
+        with span("lfn3.features"):
+            x = (images + torch.tensor(BGR_ADD, dtype=images.dtype, device=images.device)).flip(-1)
+            scaler = InputScaler(images.shape, stride=cfg.output_stride)
+            # frame 1 of every sample, then frame 2 of every sample
+            x = scaler.fill(x.transpose(0, 1).reshape(2 * B, H, W, 3))
+            # a copy to NCHW, also when traced: the card's upsample returns
+            # channels-last, but its fake version (what torch.export traces)
+            # says NCHW, so a `.contiguous()` would leave the exported program
+            # and its convs running channels-last (one-ulp drift from eager)
+            x = nchw(x).clone(memory_format=torch.contiguous_format)
+            feats = [(f[:B], f[B:]) for f in self.feature_net(x)]
+            images_pyr = [nchw(resize_bilinear(nhwc(x), f1.shape[2:])).split(B)
+                          for f1, _ in feats]
 
         flow_preds, conf_preds = [], []
         flow = conf = corr = sub_feat = reg_feat = None
@@ -361,34 +377,41 @@ class LiteFlowNet3(nn.Module):
             f1, f2 = feats[i]
             if i >= cfg.min_mod_level:
                 j = i - cfg.min_mod_level
-                flow, conf = getattr(self, f"deformation_nets_{j}")(f1, flow, conf)
-                flow, conf = widen(flow), widen(conf)
+                with span("lfn3.deform"):
+                    flow, conf = getattr(self, f"deformation_nets_{j}")(f1, flow, conf)
+                    flow, conf = widen(flow), widen(conf)
                 conf_preds.append(conf)
-                corr = getattr(self, f"modulation_nets_{j}")(f1, f2, flow, conf)
-            flow = widen(getattr(self, f"matching_nets_{i}")(f1, f2, flow, corr))
-            flow, sub_feat = getattr(self, f"subpixel_nets_{i}")(f1, f2, flow)
-            flow, conf, reg_feat = getattr(self, f"regularization_nets_{i}")(
-                *images_pyr[i], f1, flow)
-            flow = widen(flow)
+                with span("lfn3.modulate"):
+                    corr = getattr(self, f"modulation_nets_{j}")(f1, f2, flow, conf)
+            with span("lfn3.match"):
+                flow = widen(getattr(self, f"matching_nets_{i}")(f1, f2, flow, corr))
+            with span("lfn3.subpixel"):
+                flow, sub_feat = getattr(self, f"subpixel_nets_{i}")(f1, f2, flow)
+            with span("lfn3.regularize"):
+                flow, conf, reg_feat = getattr(self, f"regularization_nets_{i}")(
+                    *images_pyr[i], f1, flow)
+                flow = widen(flow)
+                if conf is not None:
+                    conf = widen(conf)
             flow_preds.append(flow)
             if conf is not None:
-                conf = widen(conf)
                 conf_preds.append(conf)
             corr = None
 
-        if cfg.use_pseudo_regularization:
-            flow = self.pseudo_subpixel(sub_feat, flow)
-            flow = self.pseudo_regularization(reg_feat, flow)
-        flow = self.up_flow(flow) * cfg.div_flow
-        flow = scaler.unfill(nhwc(flow), is_flow=True)
-        conf_last = nhwc(conf_preds[-1])
-        conf_full = resize_bilinear(conf_last, (conf_last.shape[1] * 4, conf_last.shape[2] * 4))
-        out = {"flows": flow[:, None], "confs": scaler.unfill(conf_full)[:, None]}
+        with span("lfn3.upsample"):
+            if cfg.use_pseudo_regularization:
+                flow = self.pseudo_subpixel(sub_feat, flow)
+                flow = self.pseudo_regularization(reg_feat, flow)
+            flow = self.up_flow(flow) * cfg.div_flow
+            flow = scaler.unfill(nhwc(flow), is_flow=True)
+            conf_last = nhwc(conf_preds[-1])
+            conf_full = resize_bilinear(conf_last,
+                                        (conf_last.shape[1] * 4, conf_last.shape[2] * 4))
+            out = {"flows": flow[:, None], "confs": scaler.unfill(conf_full)[:, None]}
         if training:
             out["flow_preds"] = [nhwc(f) for f in flow_preds]
             out["conf_preds"] = [nhwc(c) for c in conf_preds]
         return out
-
 
 def liteflownet3(device="cuda", generator=None, **kw) -> LiteFlowNet3:
     return LiteFlowNet3(LFN3Config(**kw), device, generator)

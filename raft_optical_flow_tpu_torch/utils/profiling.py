@@ -28,7 +28,8 @@ from torch import nn
 from torch.profiler import record_function
 
 # Every range the port opens: RAFT's layers (where each opens:
-# models/raft.py), then the train step's phases (train/trainer.py).
+# models/raft.py), LiteFlowNet3's stages and mechanisms
+# (models/liteflownet3.py), then the train step's phases (train/trainer.py).
 SPANS = (
     "raft.forward",
     "raft.encode",
@@ -37,6 +38,17 @@ SPANS = (
     "raft.lookup",
     "raft.update",
     "raft.upsample",
+    "lfn3.forward",
+    "lfn3.features",
+    "lfn3.deform",
+    "lfn3.modulate",
+    "lfn3.match",
+    "lfn3.subpixel",
+    "lfn3.regularize",
+    "lfn3.upsample",
+    "lfn3.corr",
+    "lfn3.warp",
+    "lfn3.smooth",
     "train.data",
     "train.loss",
     "train.backward",

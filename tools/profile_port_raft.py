@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Profile one forward or training step of the PyTorch port on the GPU: RAFT-standard,
-SimpleFlowNet, IFNet, or RAFT-small's UFlow training step.
+SimpleFlowNet, IFNet, LiteFlowNet3, or RAFT-small's UFlow training step.
 
     python3 tools/profile_port_raft.py [--batch 16] [--iters 32] [--dtype bf16]
     python3 tools/profile_port_raft.py --mode train [--batch 4] [--iters 12]
@@ -9,6 +9,7 @@ SimpleFlowNet, IFNet, or RAFT-small's UFlow training step.
     python3 tools/profile_port_raft.py --small --dtype fp32 [--span raft.update]
     python3 tools/profile_port_raft.py --model simple_flow|ifnet [--mode train] [--dtype fp32]
     python3 tools/profile_port_raft.py --model uflow [--batch 4] [--iters 4]
+    python3 tools/profile_port_raft.py --model lfn3 [--batch 16] [--dtype bf16]
 
 `--mode serve` (default): the serving workload of `bench.py::main` (1024x436
 frames padded to 1024x440, test mode). `--mode train`: one training step of
@@ -24,10 +25,14 @@ its backward at batch 8, 384x768 (`cli/train_flow.py`), no optimizer step.
 `--model uflow`: one `FlowTrainer('raft_uflow_unsup')` step (fp32, batch 4,
 256x384, 4 iterations, `checkpoints/raft_small.npz`, the occlusion masks on;
 `tools/unsup_bootstrap_tpu.sh`'s round-5 crop), optimizer included.
+`--model lfn3`: LiteFlowNet3 (standard) serving full-HD pairs (1920x1080,
+rescaled inside to 1920x1088), the benchmark's seeded weights and frames
+(`flowbench/weights_lfn3.py`, `flowbench/inputs.py`); serving only.
 Seeded random weights (but RAFT-small's) and data. The
 call runs twice to warm up, then once under `torch.profiler`. Prints, for
 each of the port's spans the call opened (`utils/profiling.py::SPANS`:
-RAFT's layers and the train step's phases), how often it opened, its host
+RAFT's layers, LiteFlowNet3's stages and mechanisms, and the train step's
+phases), how often it opened, its host
 ms and the device ms of the kernels launched inside it (by launch time, on
 any thread, so the backward's kernels that autograd's device thread
 launches count in `train.backward`; spans nest, so each row holds its
@@ -53,8 +58,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the spans that no other span holds
-OUTERMOST = ("raft.forward", "train.data", "train.loss", "train.backward", "train.allreduce",
-             "train.optimizer")
+OUTERMOST = ("raft.forward", "lfn3.forward", "train.data", "train.loss", "train.backward",
+             "train.allreduce", "train.optimizer")
 
 
 def _serve_call(config, batch, iters):
@@ -127,6 +132,18 @@ def _uflow_call(batch, iters):
     return lambda: trainer.train_step(frames)
 
 
+def _lfn3_call(dtype, batch):
+    from flowbench.inputs import make_batch
+    from flowbench.weights_lfn3 import make_weights
+    from raft_optical_flow_tpu_torch.models.liteflownet3 import liteflownet3
+
+    model = liteflownet3(device="cuda", compute_dtype=dtype)
+    model.load_state_dict(make_weights(0, "cuda"))
+    b = make_batch(0, 0, batch, 1080, 1920, "cuda")
+    images = torch.stack([b["image1"], b["image2"]], dim=1) / 255.0
+    return lambda: model(images)
+
+
 def kernels_in_span(events, name):
     """{kernel name: [device ms, launches]} of the kernels whose launch (the
     runtime call of the same correlation id) started inside a host range
@@ -151,7 +168,8 @@ def kernels_in_span(events, name):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("raft", "simple_flow", "ifnet", "uflow"), default="raft")
+    ap.add_argument("--model", choices=("raft", "simple_flow", "ifnet", "uflow", "lfn3"),
+                    default="raft")
     ap.add_argument("--mode", choices=("serve", "train"), default="serve")
     ap.add_argument("--batch", type=int, default=None,
                     help="default 16 serving, 4 training (SimpleFlowNet and IFNet: 8)")
@@ -180,6 +198,10 @@ def main() -> int:
     iters = args.iters or ((4 if args.model == "uflow" else 12) if train else 32)
     if args.model == "uflow":
         run = _uflow_call(batch, iters)
+    elif args.model == "lfn3":
+        if train:
+            raise SystemExit("profile_port_raft: --model lfn3 profiles serving only")
+        run = _lfn3_call(dtype, batch)
     elif args.model == "raft":
         config = RAFTConfig(small=args.small, compute_dtype=dtype,
                             alternate_corr=args.alternate_corr, remat=args.remat,
